@@ -1,0 +1,55 @@
+"""Carry a reference run's graph and state across into the port.
+
+Both functions are duck-typed on host arrays, so this module imports
+nothing of the reference package: the caller hands over numpy views.
+
+  * ``graph_from_reference(g)`` reads ``num_vertices / src / dst / weight
+    / row_ptr / deg_w``.
+  * ``state_from_reference(s)`` takes a reference ``SpinnerState`` turned
+    into host arrays (e.g. ``jax.device_get(state)``) or the dict of
+    ``PartitionSession.export_state()``: labels, loads and the threefry
+    key as ``uint32[2]`` (``key`` or ``rng_key``), plus the halting
+    aggregates where the source has them.  The port then continues the
+    same run: same key stream, same halting state.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.engine import SpinnerState, init_state
+from .core.graph import Graph
+
+# reference SpinnerState fields carried over when present: name -> dtype
+_CARRIED = {"best_score": torch.float32, "stall": torch.int32,
+            "iteration": torch.int32, "halted": torch.bool,
+            "total_messages": torch.float32, "score": torch.float32,
+            "migrations": torch.int32, "message_mass": torch.float32}
+
+
+def graph_from_reference(g) -> Graph:
+    """The port's ``Graph`` with the reference graph's arrays."""
+    return Graph(num_vertices=int(g.num_vertices),
+                 src=np.asarray(g.src, np.int32),
+                 dst=np.asarray(g.dst, np.int32),
+                 weight=np.asarray(g.weight, np.float32),
+                 row_ptr=np.asarray(g.row_ptr, np.int64),
+                 deg_w=np.asarray(g.deg_w, np.float32))
+
+
+def state_from_reference(s, device) -> SpinnerState:
+    """The port's ``SpinnerState`` on ``device`` continuing reference state
+    ``s`` (a state with host arrays, or an ``export_state()`` dict)."""
+    fields = dict(s) if isinstance(s, dict) else s._asdict()
+    key = fields.get("key", fields.get("rng_key"))
+    if key is None:
+        raise ValueError("reference state carries no key ('key' or "
+                         "'rng_key')")
+    key = np.asarray(key, np.uint32).reshape(2)
+    state = init_state(np.asarray(fields["labels"], np.int32),
+                       np.asarray(fields["loads"], np.float32),
+                       (int(key[0]), int(key[1])), device=device)
+    carried = {name: torch.tensor(np.asarray(fields[name]).item(),
+                                  dtype=dtype, device=state.labels.device)
+               for name, dtype in _CARRIED.items() if name in fields}
+    return state._replace(**carried)
