@@ -23,6 +23,19 @@ about 128 M directed CSR entries, k = 32):
   (d) a medium graph (``watts_strogatz(200_000, 16, 0.3, seed=1)``): the
       fused kernel, the split kernel and the PyTorch scatter oracle must
       give the same labels, loads and iteration counts;
+  (f) the Pregel applications on the full graph, placed by the labels (c)
+      converged to and by the hash baseline: both placed layouts built on
+      the card (timed); the two combine kernels at full size against
+      their plain versions (min bitwise; sum within rtol 1e-5, atol 1e-9
+      and bitwise equal to itself across launches), timed beside
+      ``torch.sparse.mm`` / ``torch.segment_reduce`` yardsticks (which
+      the port never calls), and the reduce timed on each placement;
+      whole ``run_app`` runs -- PageRank 20 supersteps, WCC and BFS to
+      the halt -- on both placements, each kernel launched once per
+      superstep, WCC/BFS identical and PageRank within rtol 1e-4 across
+      placements; one superstep split into its parts; and on the medium
+      graph (with (d)'s labels) the kernels' runs against the plain
+      versions' and against the numpy oracles;
   (e) one JSON line describing each kernel.
 
 Exits non-zero, printing no result, if there is no CUDA device or any
@@ -41,9 +54,13 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
+F32_OPS_PER_S = 67e12              # H100 SXM float32 outside tensor cores
 FULL_N, MEDIUM_N, DEG, BETA, K = 4_000_000, 200_000, 16, 0.3, 32
 SPLIT_ITERS = 8                    # depth of the score-matrix path run
+PAGERANK_ITERS = 20
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/spinner_scores.cu"
+PREGEL_SOURCE = "src/repro_torch/kernels/csrc/pregel_combine.cu"
+PREGEL_TPU = "src/repro/kernels/pregel_combine.py"
 
 
 def check(cond: bool, msg: str) -> None:
@@ -192,8 +209,9 @@ def phase_kernels(padded, dev, report: dict) -> None:
           f"{res['spinner_scores_csr']['library_bitwise_equal']}", flush=True)
 
 
-def phase_main_path(graph, padded, dev, report: dict) -> None:
-    """(c) The main path at full size, through the fused kernel."""
+def phase_main_path(graph, padded, dev, report: dict) -> np.ndarray:
+    """(c) The main path at full size, through the fused kernel; returns
+    the labels it converged to."""
     from repro_torch import rng
     from repro_torch.core import EngineOptions, SpinnerConfig, metrics
     from repro_torch.core import engine, partition
@@ -290,10 +308,12 @@ def phase_main_path(graph, padded, dev, report: dict) -> None:
     print(f"(c) fused_update='off' path, {SPLIT_ITERS} iterations: "
           f"spinner_scores_csr launches={k2_launches}; labels and loads "
           f"equal to the fused path's", flush=True)
+    return res.labels
 
 
-def phase_medium_parity(dev, report: dict) -> None:
-    """(d) Backends and fused/split paths agree label for label."""
+def phase_medium_parity(dev, report: dict) -> tuple:
+    """(d) Backends and fused/split paths agree label for label; returns
+    the medium graph and its labels."""
     from repro_torch.core import EngineOptions, SpinnerConfig, generators
     from repro_torch.core import partition
 
@@ -320,6 +340,341 @@ def phase_medium_parity(dev, report: dict) -> None:
     report["medium"] = dict(iterations=base.iterations, halted=base.halted)
     print(f"(d) medium parity V={MEDIUM_N}: cuda/on, cuda/off and torch/off "
           f"identical ({base.iterations} iterations)", flush=True)
+    return g, base.labels
+
+
+def hash_labels(v: int, k: int) -> np.ndarray:
+    """The hash placement baseline (vertex id times Knuth's constant)."""
+    return (np.arange(v, dtype=np.int64) * 2654435761 % k).astype(np.int32)
+
+
+def pregel_bound(rp, dst, combine: str, seeded: bool, update: bool) -> dict:
+    """The least time of one combine-kernel call on this CSR: the bytes
+    it must move (row_ptr 8 B/row, dst 4 B/edge, the send vector once --
+    not read at all when there are no edges --, the seed, and for the
+    update the valid mask and the min's values in, the (rows,) outputs
+    out) over the memory rate, against its operations (an add or a min
+    per edge) over the float32 rate.  ``bytes_with_gather`` counts the
+    send gather at 4 B per edge instead, as if no gathered value hit L2."""
+    rows, edges = rp.numel() - 1, dst.numel()
+    fixed = (rows + 1) * 8 + edges * 4 + rows * 4
+    if seeded:
+        fixed += rows * 4
+    if update:
+        fixed += rows + rows + (rows * 4 if combine == "min" else 0)
+    nbytes = fixed + (rows * 4 if edges else 0)
+    ops = edges * (1 if combine == "sum" else 2) + rows * (2 if update else 1)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes=nbytes, ops=ops,
+                bound_ms_with_gather=(fixed + edges * 4) / HBM_BYTES_PER_S
+                * 1e3)
+
+
+def pregel_kernels_against_plain(lay, dev, report: dict) -> None:
+    """(f) Both combine kernels on the placed full-size layout against
+    their plain versions, then timed (CUDA-event medians) with their
+    plain versions and library yardsticks the port never calls."""
+    from repro_torch.apps import APPS, init_values
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pregel_combine import (pregel_combine,
+                                                    pregel_reduce)
+
+    v, n, e = lay.v_pad, lay.num_real, lay.dst.numel()
+
+    def up(a):
+        return torch.from_numpy(a).to(dev)
+
+    pr0 = up(init_values(APPS["pagerank"], lay))
+    wcc0 = up(init_values(APPS["wcc"], lay))
+    bfs0 = up(init_values(APPS["bfs"], lay, source=0))
+    gen = np.random.default_rng(13)
+    seeds = {"sum": up(gen.uniform(0.0, 1.0 / n, v).astype(np.float32)),
+             "min": up(gen.integers(0, n, v).astype(np.int32))}
+    base = float(np.float32(0.15 / n))
+    # (combine, update, bias, send, values): PageRank's first message
+    # vector, WCC's initial ids, BFS's initial distances (+1 per hop)
+    cases = [("sum", "pagerank", 0, pr0 / torch.clamp(lay.deg_cnt, min=1.0),
+              pr0), ("min", "min", 0, wcc0, wcc0), ("min", "min", 1, bfs0,
+                                                     bfs0)]
+    full = (lay.row_ptr, lay.dst)
+    front = (lay.frontier_row_ptr, lay.frontier_dst)
+    errs = {"pregel_reduce_csr": 0.0, "pregel_combine_csr": 0.0}
+
+    def hold(name, combine, got, again, want):
+        torch.cuda.synchronize()
+        for a, b, c in zip(got, again, want):
+            check(bits_equal(a, b), f"{name} ({combine}) differs between "
+                  f"two launches")
+            if combine == "min" or a.dtype == torch.bool:
+                check(bits_equal(a, c), f"{name} ({combine}) != plain")
+            else:
+                check(bool(torch.allclose(a, c, rtol=1e-5, atol=1e-9)),
+                      f"{name} ({combine}) outside rtol 1e-5 of plain")
+        errs[name] = max(errs[name], max_abs_err(zip(got, want)))
+
+    for combine, update, bias, send, values in cases:
+        for rp, dst, seed in ((*full, None), (*full, seeds[combine]),
+                              (*front, seeds[combine])):
+            kw = dict(combine=combine, bias=bias, acc_init=seed)
+            hold("pregel_reduce_csr", combine,
+                 (pregel_reduce(send, rp, dst, **kw),),
+                 (pregel_reduce(send, rp, dst, **kw),),
+                 (ref.pregel_reduce_ref(send, rp, dst, **kw),))
+            ckw = dict(kw, update=update, damping=0.85)
+            hold("pregel_combine_csr", combine,
+                 pregel_combine(send, rp, dst, values, lay.valid, base,
+                                **ckw),
+                 pregel_combine(send, rp, dst, values, lay.valid, base,
+                                **ckw),
+                 ref.pregel_combine_ref(send, rp, dst, values, lay.valid,
+                                        base, **ckw))
+    print(f"(f) pregel_reduce_csr / pregel_combine_csr at V_pad={v} E={e}: "
+          f"min bitwise equal, sum within rtol 1e-5 (max_abs_err "
+          f"{errs['pregel_reduce_csr']} / {errs['pregel_combine_csr']}), "
+          f"each bitwise equal across two launches, over the full CSR and "
+          f"the empty frontier, with and without acc_init", flush=True)
+
+    a_csr = torch.sparse_csr_tensor(lay.row_ptr.to(torch.int32), lay.dst,
+                                    torch.ones(e, device=dev), size=(v, v),
+                                    check_invariants=False)
+    out = {"pregel_reduce_csr": dict(max_abs_err=errs["pregel_reduce_csr"]),
+           "pregel_combine_csr": dict(
+               max_abs_err=errs["pregel_combine_csr"], library_ms=None)}
+    for combine, update, bias, send, values in cases[:2]:
+        kw = dict(combine=combine, bias=bias)
+        partial = pregel_reduce(send, *full, **kw)
+        ckw = dict(kw, update=update, damping=0.85, acc_init=partial)
+        if combine == "sum":
+            def library():
+                return torch.sparse.mm(a_csr, send[:, None])
+        else:
+            def library():     # segment_reduce takes no int32: cast
+                return torch.segment_reduce(
+                    (send[lay.dst] + bias).to(torch.float32), "min",
+                    offsets=lay.row_ptr, initial=float(ref.INF_I32))
+        lib_err = max_abs_err([(library().reshape(-1).double(),
+                                partial.double())])
+        sfx = "" if combine == "sum" else "_min"
+        k3, k4 = out["pregel_reduce_csr"], out["pregel_combine_csr"]
+        k3.update({
+            "ms" + sfx: time_ms(lambda: pregel_reduce(send, *full, **kw),
+                                reps=20),
+            "plain_ms" + sfx: time_ms(lambda: ref.pregel_reduce_ref(
+                send, *full, **kw), reps=5),
+            "library_ms" + sfx: time_ms(library, reps=20),
+            "library_max_abs_err" + sfx: lib_err})
+        k3.update({k + sfx: x for k, x in pregel_bound(
+            *full, combine, False, False).items()})
+        # the main path's call: the empty frontier, seeded by the partial
+        k4.update({
+            "ms" + sfx: time_ms(lambda: pregel_combine(
+                send, *front, values, lay.valid, base, **ckw), reps=20),
+            "plain_ms" + sfx: time_ms(lambda: ref.pregel_combine_ref(
+                send, *front, values, lay.valid, base, **ckw), reps=5),
+            "ms_full_csr" + sfx: time_ms(lambda: pregel_combine(
+                send, *full, values, lay.valid, base, **ckw), reps=20),
+            "plain_ms_full_csr" + sfx: time_ms(lambda: ref.pregel_combine_ref(
+                send, *full, values, lay.valid, base, **ckw), reps=5),
+            "library_reduce_ms_full_csr" + sfx: k3["library_ms" + sfx]})
+        k4.update({k + sfx: x for k, x in pregel_bound(
+            *front, combine, True, True).items()})
+        k4["bound_ms_full_csr" + sfx] = pregel_bound(
+            *full, combine, True, True)["bound_ms"]
+        for name, r in (("pregel_reduce_csr", k3),
+                        ("pregel_combine_csr", k4)):
+            print(f"(f) {name} ({combine}): {r['ms' + sfx]:.3f} ms, plain "
+                  f"{r['plain_ms' + sfx]:.3f} ms, bound "
+                  f"{r['bound_ms' + sfx]:.3f} ms for {r['bytes' + sfx]} B"
+                  + (f", library {r['library_ms' + sfx]:.3f} ms (max_abs_err "
+                     f"{lib_err} against the kernel)" if name.startswith(
+                         "pregel_reduce") else
+                     f"; over the full CSR {r['ms_full_csr' + sfx]:.3f} ms "
+                     f"(plain {r['plain_ms_full_csr' + sfx]:.3f}, bound "
+                     f"{r['bound_ms_full_csr' + sfx]:.3f})"), flush=True)
+    del a_csr
+    report.update(out)
+
+
+def reduce_ms_by_placement(layouts: dict, dev) -> dict:
+    """(f) ``pregel_reduce_csr``'s time on each placed layout (PageRank's
+    first messages and WCC's ids), CUDA-event medians taken in turns
+    (spinner, hash, hash, spinner) and averaged per placement."""
+    from repro_torch.apps import APPS, init_values
+    from repro_torch.kernels.pregel_combine import pregel_reduce
+
+    times = {name: {"sum": [], "min": []} for name in layouts}
+    names = list(layouts)
+    for name in names + names[::-1]:
+        lay = layouts[name]
+        for wl, combine in (("pagerank", "sum"), ("wcc", "min")):
+            send = torch.from_numpy(init_values(APPS[wl], lay)).to(dev)
+            if combine == "sum":
+                send = send / torch.clamp(lay.deg_cnt, min=1.0)
+            times[name][combine].append(time_ms(
+                lambda: pregel_reduce(send, lay.row_ptr, lay.dst,
+                                      combine=combine), reps=20))
+    out = {name: {c: statistics.mean(ts) for c, ts in t.items()}
+           for name, t in times.items()}
+    print("(f) pregel_reduce_csr by placement: " + "; ".join(
+        f"{name} sum {t['sum']:.3f} ms, min {t['min']:.3f} ms"
+        for name, t in out.items()), flush=True)
+    return out
+
+
+def phase_apps(graph, labels: np.ndarray, dev, report: dict) -> None:
+    """(f) The Pregel applications at full size on both placements."""
+    from repro_torch.apps import build_app_layout, run_app
+    from repro_torch.kernels.pregel_combine import (pregel_combine,
+                                                    pregel_reduce)
+
+    placements = {"spinner": labels,
+                  "hash": hash_labels(graph.num_vertices, K)}
+    for name, lab in placements.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lay = build_app_layout(graph, lab, dev)
+        torch.cuda.synchronize()
+        print(f"(f) {name} layout built on the card in "
+              f"{time.perf_counter() - t0:.3f}s: V_pad={lay.v_pad} "
+              f"E={lay.dst.numel()}", flush=True)
+    pregel_kernels_against_plain(build_app_layout(graph, labels, dev), dev,
+                                 report)
+    torch.cuda.empty_cache()
+    report["pregel_reduce_csr"]["ms_by_placement"] = reduce_ms_by_placement(
+        {name: build_app_layout(graph, lab, dev)
+         for name, lab in placements.items()}, dev)
+
+    runs, launches = {}, 0
+    src, dst = graph.src, graph.dst
+    for i, (wl, kw) in enumerate((("pagerank", dict(iters=PAGERANK_ITERS)),
+                                  ("wcc", {}), ("bfs", dict(source=0)))):
+        order = list(placements.items())
+        for name, lab in (order if i % 2 == 0 else order[::-1]):
+            pregel_reduce.launches = pregel_combine.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = run_app(graph, lab, wl, device=dev, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n3, n4 = pregel_reduce.launches, pregel_combine.launches
+            check(n3 == n4 == r.supersteps >= 1,
+                  f"{wl}/{name}: kernels launched {n3}/{n4} times in "
+                  f"{r.supersteps} supersteps")
+            check(r.converged and r.values.shape == (graph.num_vertices,),
+                  f"{wl}/{name}: not converged or wrong shape")
+            launches += n3
+            runs[wl, name] = (r, wall)
+            print(f"(f) {wl} on the {name} placement: supersteps="
+                  f"{r.supersteps} wall={wall:.3f}s ms/superstep="
+                  f"{wall / r.supersteps * 1e3:.3f} messages="
+                  f"{r.device_messages[0]:.0f} launches={n3}+{n4}",
+                  flush=True)
+        (a, wa), (b, wb) = runs[wl, "spinner"], runs[wl, "hash"]
+        check(a.supersteps == b.supersteps, f"{wl}: supersteps differ "
+              f"between placements")
+        check(bool(np.allclose(a.device_messages, b.device_messages,
+                               rtol=1e-6, atol=0)),
+              f"{wl}: message counts differ between placements")
+        if wl == "pagerank":
+            check(bool(np.allclose(a.values, b.values, rtol=1e-4,
+                                   atol=1e-9)),
+                  "pagerank differs between placements")
+            total = float(a.values.astype(np.float64).sum())
+            check(abs(total - 1.0) < 1e-3, f"pagerank sums to {total}")
+        else:
+            check(np.array_equal(a.values, b.values),
+                  f"{wl} differs between placements")
+        if wl == "wcc":      # a fixed point: every edge inside a component
+            comp = a.values
+            check(np.array_equal(comp[src], comp[dst])
+                  and bool((comp <= np.arange(comp.size)).all()),
+                  "wcc is not a fixed point")
+        if wl == "bfs":      # distances: source 0, neighbours within a hop
+            d = a.values
+            check(d[0] == 0 and bool(np.isfinite(d).all())
+                  and bool((np.abs(d[src] - d[dst]) <= 1).all()),
+                  "bfs distances violate an edge")
+        print(f"(f) {wl}: identical under both placements"
+              f"{' (within rtol 1e-4)' if wl == 'pagerank' else ''}; "
+              f"spinner/hash wall ratio {wa / wb:.3f} (information only)",
+              flush=True)
+    report["pregel_reduce_csr"]["launches"] = launches
+    report["pregel_combine_csr"]["launches"] = launches
+    superstep_split(build_app_layout(graph, labels, dev), dev, report)
+    report["apps"] = {f"{wl}/{name}": dict(
+        supersteps=r.supersteps, wall_s=wall,
+        ms_per_superstep=wall / r.supersteps * 1e3)
+        for (wl, name), (r, wall) in runs.items()}
+
+
+def superstep_split(lay, dev, report: dict) -> None:
+    """(f) One PageRank and one WCC superstep on the Spinner layout, end
+    to end and split into the parts outside the kernels (CUDA-event
+    medians; the kernels' own times are the kernels line's)."""
+    from repro_torch.apps import APPS, AppState, init_active, init_values
+    from repro_torch.apps.engine import COMBINE_BACKENDS, make_superstep
+
+    share = torch.clamp(lay.deg_cnt, min=1.0)
+    split = {}
+    for wl in ("pagerank", "wcc"):
+        spec = APPS[wl]
+        step = make_superstep(spec, lay, *COMBINE_BACKENDS["cuda"], 0.85)
+        values = torch.from_numpy(init_values(spec, lay)).to(dev)
+        changed = torch.from_numpy(init_active(spec, lay)).to(dev)
+        state = AppState(values=values, changed=changed, step=0,
+                         active=int(changed.sum()),
+                         msgs=torch.zeros((), device=dev))
+        parts = {"superstep_ms": time_ms(lambda: step(state), reps=20),
+                 "msgs_ms": time_ms(lambda: state.msgs + (
+                     lay.deg_cnt * changed.to(torch.float32)).sum(),
+                     reps=20)}
+        if wl == "pagerank":
+            parts["send_ms"] = time_ms(lambda: values / share, reps=20)
+        else:
+            parts["active_read_ms"] = time_ms(lambda: int(changed.sum()),
+                                              reps=20)
+        split[wl] = parts
+        print(f"(f) one {wl} superstep (spinner layout): " + " ".join(
+            f"{k}={x:.3f}" for k, x in parts.items()), flush=True)
+    report["superstep_split"] = split
+
+
+def phase_apps_medium(g, labels: np.ndarray, dev) -> None:
+    """(f) On the medium graph: the kernels' runs against the plain
+    versions' (``combine="torch"``) and the numpy oracles."""
+    from repro_torch.apps import run_app
+    from repro_torch.core import pregel
+
+    oracles = {"pagerank": pregel.pagerank(g, labels, K,
+                                           iters=PAGERANK_ITERS),
+               "wcc": pregel.wcc(g, labels, K),
+               "bfs": pregel.sssp(g, 0, labels, K)}
+    oracles["sssp"] = oracles["bfs"]
+    for wl, oracle in oracles.items():
+        a = run_app(g, labels, wl, device=dev)
+        b = run_app(g, labels, wl, combine="torch", device=dev)
+        check(a.supersteps == b.supersteps == oracle.supersteps
+              and a.converged and b.converged,
+              f"medium {wl}: supersteps {a.supersteps}/{b.supersteps}/"
+              f"{oracle.supersteps}")
+        check(bool(np.allclose(a.device_messages, b.device_messages,
+                               rtol=1e-6, atol=0)),
+              f"medium {wl}: message counts differ between backends")
+        if wl == "pagerank":
+            for got in (a, b):
+                check(bool(np.allclose(got.values, oracle.values,
+                                       rtol=1e-4, atol=1e-9)),
+                      "medium pagerank outside rtol 1e-4 of the oracle")
+        else:
+            check(np.array_equal(a.values, b.values)
+                  and np.array_equal(a.values, oracle.values),
+                  f"medium {wl} differs from the plain run or the oracle")
+        print(f"(f) medium {wl} V={g.num_vertices}: cuda and torch combine "
+              f"agree with each other and the numpy oracle "
+              f"({a.supersteps} supersteps)", flush=True)
 
 
 def main() -> int:
@@ -358,9 +713,12 @@ def main() -> int:
     report: dict = {}
     phase_kernels(padded, dev, report)
     torch.cuda.empty_cache()
-    phase_main_path(graph, padded, dev, report)
+    labels = phase_main_path(graph, padded, dev, report)
     torch.cuda.empty_cache()
-    phase_medium_parity(dev, report)
+    medium = phase_medium_parity(dev, report)
+    torch.cuda.empty_cache()
+    phase_apps(graph, labels, dev, report)
+    phase_apps_medium(*medium, dev)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB", flush=True)
 
@@ -377,6 +735,10 @@ def main() -> int:
         "plain_ms_random_labels": r["random_labels"]["plain_ms"],
         "library_ms_random_labels": r["random_labels"]["library_ms"],
     } for name, r in ((n, report[n]) for n in replaces)]
+    kernels += [{"name": name, "route": "cuda", "source": PREGEL_SOURCE,
+                 "replaces": f"{PREGEL_TPU}:{line}", **report[name]}
+                for name, line in (("pregel_reduce_csr", 132),
+                                   ("pregel_combine_csr", 175))]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

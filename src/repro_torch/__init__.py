@@ -13,6 +13,10 @@ on the CUDA card unless the caller asks for the CPU::
 
 Ported so far: single-device ``partition`` (fused, chunked and host
 runners), the threefry generator that matches ``jax.random`` bit for
-bit (``rng``), and the CSR score kernels (``kernels``).
+bit (``rng``), the CSR score and Pregel combine kernels (``kernels``),
+and the single-device Pregel applications (``apps``)::
+
+    from repro_torch.apps import run_app
+    run_app(g, res.labels, "pagerank")
 """
 __version__ = "0.1.0"

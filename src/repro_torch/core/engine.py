@@ -49,6 +49,20 @@ _SHARDED_ONLY = {"mesh": None, "label_exchange": "auto", "delta_cap": None,
                  "sharded_noise": "replicated"}
 
 
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: ``None`` means the CUDA card, and
+    raises where there is none; a run never falls back to the CPU unless
+    ``device="cpu"`` asks for it."""
+    if device is None or torch.device(device).type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the port runs on the card unless "
+                "device='cpu' (or EngineOptions(device='cpu')) asks for "
+                "the CPU")
+        return torch.device("cuda" if device is None else device)
+    return torch.device(device)
+
+
 @dataclasses.dataclass(frozen=True)
 class EngineOptions:
     """How a run executes: runner, score backend, fused update, pad policy
@@ -91,15 +105,7 @@ class EngineOptions:
                 "Slice D)")
 
     def resolved_device(self) -> torch.device:
-        if self.device is None or torch.device(self.device).type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "no CUDA device: the port runs on the card unless "
-                    "EngineOptions(device='cpu') (or device='cpu') asks "
-                    "for the CPU")
-            return torch.device("cuda" if self.device is None
-                                else self.device)
-        return torch.device(self.device)
+        return resolve_device(self.device)
 
     def resolved_fused_update(self) -> str:
         if self.fused_update not in ("auto", "on", "off"):

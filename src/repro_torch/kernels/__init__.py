@@ -1,9 +1,10 @@
 """Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
 
-``spinner_scores`` holds the kernels' wrappers (``spinner_scores`` and
-``fused_update``), ``ref`` their plain versions, ``ops`` the score-backend
-registry the engine uses.
+``spinner_scores`` holds the score kernels' wrappers (``spinner_scores``
+and ``fused_update``), ``pregel_combine`` the Pregel combine kernels'
+(``pregel_reduce`` and ``pregel_combine``), ``ref`` their plain versions,
+``ops`` the score-backend registry the engine uses.
 """
-from . import ops, ref, spinner_scores
+from . import ops, pregel_combine, ref, spinner_scores
 
-__all__ = ["ops", "ref", "spinner_scores"]
+__all__ = ["ops", "pregel_combine", "ref", "spinner_scores"]

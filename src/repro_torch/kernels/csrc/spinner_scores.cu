@@ -39,10 +39,12 @@
 #include <math_constants.h>
 #include <climits>
 
+#include "csr_launch.cuh"
+
 namespace {
 
-constexpr int kWarp = 32;
-constexpr unsigned kFull = 0xffffffffu;
+using csr::kFull;
+using csr::kWarp;
 
 // s[v, :] += over the row's edges, into the warp's shared slice `acc`.
 // Weight-0 entries (bucket padding) are skipped: they add nothing.
@@ -148,23 +150,6 @@ __global__ void fused_update_kernel(
     if (m_block[l] != 0.0f) atomicAdd(&m_out[l], m_block[l]);
 }
 
-// Enough blocks to fill every SM, no more: the grid-stride loops take the
-// remaining rows, and the fused kernel flushes M(l) once per block.
-template <typename Kernel>
-int grid_for(Kernel kernel, int num_vertices, int threads, size_t smem,
-             int warps) {
-  int dev = 0, sms = 1, per_sm = 1;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
-                                                smem);
-  const long long need = (static_cast<long long>(num_vertices) + warps - 1) /
-                         warps;
-  const long long cap =
-      static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
-  return static_cast<int>(need < cap ? need : cap);
-}
-
 }  // namespace
 
 extern "C" int spinner_scores_csr(const void* row_ptr, const void* dst,
@@ -173,8 +158,8 @@ extern "C" int spinner_scores_csr(const void* row_ptr, const void* dst,
                                   int warps, void* stream) {
   const int threads = warps * kWarp;
   const size_t smem = static_cast<size_t>(warps) * k * sizeof(float);
-  const int grid = grid_for(spinner_scores_kernel, num_vertices, threads,
-                            smem, warps);
+  const int grid = csr::grid_for(spinner_scores_kernel, num_vertices,
+                                 threads, smem, warps);
   spinner_scores_kernel<<<grid, threads, smem,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const long long*>(row_ptr), static_cast<const int*>(dst),
@@ -193,8 +178,8 @@ extern "C" int fused_update_csr(const void* row_ptr, const void* dst,
                                 void* stream) {
   const int threads = warps * kWarp;
   const size_t smem = static_cast<size_t>(warps + 1) * k * sizeof(float);
-  const int grid = grid_for(fused_update_kernel, num_vertices, threads, smem,
-                            warps);
+  const int grid = csr::grid_for(fused_update_kernel, num_vertices,
+                                 threads, smem, warps);
   fused_update_kernel<<<grid, threads, smem,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const long long*>(row_ptr), static_cast<const int*>(dst),

@@ -10,11 +10,20 @@ wrappers in ``spinner_scores`` launch the kernels instead.
 Every score sum is an exact integer in float32 (Eq. 3 weights are 1 or
 2), so any accumulation order gives the same bits and the kernels are
 held to these versions bit for bit.
+
+``pregel_reduce_ref`` / ``pregel_combine_ref`` are the Pregel message
+combine (``pregel_combine`` kernels): a segmented sum (``index_add_``) or
+min (``scatter_reduce_`` with ``"amin"``) of the gathered messages per
+CSR row, and the vertex update after it.  The min is order-free, so the
+kernels match it bit for bit; the float32 sum rounds in another order
+than a kernel's, which is held to it within a tolerance.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+INF_I32 = 2 ** 30   # "unreached" / min identity; INF_I32 + 1 fits in int32
 
 
 def csr_src(row_ptr: torch.Tensor) -> torch.Tensor:
@@ -76,3 +85,49 @@ def fused_propose_ref(labels: torch.Tensor, src: torch.Tensor,
     valid = torch.arange(v, device=labels.device) < num_real
     return propose_ref(scores, labels, deg_w, pen, noise, valid, k,
                        current_bonus, degree_weighted)
+
+
+def pregel_reduce_ref(send: torch.Tensor, row_ptr: torch.Tensor,
+                      dst: torch.Tensor, *, combine: str, bias: int = 0,
+                      acc_init=None) -> torch.Tensor:
+    """Per CSR row v, the ``combine`` ("sum" f32 or "min" int32) of
+    ``send[dst[e]] + bias`` over v's edges, folded into ``acc_init[v]``
+    (default: the identity, 0 or ``INF_I32``)."""
+    rows = row_ptr.shape[0] - 1
+    msg = send[dst.long()]
+    if bias:
+        msg = msg + bias
+    src = csr_src(row_ptr).long()
+    if combine == "sum":
+        acc = (torch.zeros(rows, dtype=torch.float32, device=send.device)
+               if acc_init is None else acc_init.clone())
+        return acc.index_add_(0, src, msg)
+    if combine != "min":
+        raise ValueError(f"unknown combine {combine!r}; available: sum, min")
+    acc = (torch.full((rows,), INF_I32, dtype=torch.int32, device=send.device)
+           if acc_init is None else acc_init.clone())
+    return acc.scatter_reduce_(0, src, msg, "amin")
+
+
+def pregel_combine_ref(send: torch.Tensor, row_ptr: torch.Tensor,
+                       dst: torch.Tensor, values: torch.Tensor,
+                       valid: torch.Tensor, base: float, *, combine: str,
+                       update: str, damping: float, bias: int = 0,
+                       acc_init=None) -> tuple:
+    """``pregel_reduce_ref`` then the vertex update; ``(new, chg)``.
+
+    ``update="pagerank"`` (with the sum): ``new = base + damping * acc``
+    on valid rows, 0 elsewhere, ``chg = valid``.  ``update="min"`` (with
+    the min): ``new = min(values, acc)`` on valid rows, ``values``
+    elsewhere, ``chg = (new != values) & valid``.  ``base`` is PageRank's
+    float32 teleport term ``(1 - d) / N``.
+    """
+    if (combine, update) not in (("sum", "pagerank"), ("min", "min")):
+        raise ValueError(f"combine {combine!r} takes no update {update!r}: "
+                         "pair sum with pagerank, min with min")
+    acc = pregel_reduce_ref(send, row_ptr, dst, combine=combine, bias=bias,
+                            acc_init=acc_init)
+    if update == "pagerank":
+        return torch.where(valid, base + damping * acc, 0.0), valid.clone()
+    new = torch.where(valid, torch.minimum(values, acc), values)
+    return new, (new != values) & valid

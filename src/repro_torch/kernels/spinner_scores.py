@@ -26,25 +26,13 @@ _WARPS = 8                    # warps (vertex rows in flight) per block
 _SMEM_FLOATS = 48 * 1024 // 4  # static-launch shared memory limit
 
 
-def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _check_csr(labels, row_ptr, dst, w, k: int) -> int:
     v = labels.shape[0]
     dev = labels.device
-    _check("labels", labels, torch.int32, (v,), dev)
-    _check("row_ptr", row_ptr, torch.int64, (v + 1,), dev)
-    _check("dst", dst, torch.int32, dst.shape, dev)
-    _check("w", w, torch.float32, dst.shape, dev)
+    _build.check("labels", labels, torch.int32, (v,), dev)
+    _build.check("row_ptr", row_ptr, torch.int64, (v + 1,), dev)
+    _build.check("dst", dst, torch.int32, dst.shape, dev)
+    _build.check("w", w, torch.float32, dst.shape, dev)
     if dst.dim() != 1:
         raise ValueError("dst and w must be 1-D")
     if k < 1:
@@ -64,15 +52,6 @@ def _warps(k: int, extra_rows: int) -> int:
     return warps
 
 
-def _launch(fn: str, tensors, *scalars) -> None:
-    """Call C entry ``fn`` with the tensors' device pointers, then the
-    scalars (the stream last); raise on the CUDA error it returns."""
-    lib = _build.load("spinner_scores", _SIGNATURES)
-    err = getattr(lib, fn)(*(t.data_ptr() for t in tensors), *scalars)
-    if err != 0:
-        raise RuntimeError(f"{fn} launch failed with CUDA error {err}")
-
-
 def spinner_scores(labels: torch.Tensor, row_ptr: torch.Tensor,
                    dst: torch.Tensor, w: torch.Tensor,
                    k: int) -> torch.Tensor:
@@ -88,8 +67,8 @@ def spinner_scores(labels: torch.Tensor, row_ptr: torch.Tensor,
         return out
     with torch.cuda.device(labels.device):
         stream = torch.cuda.current_stream(labels.device).cuda_stream
-        _launch("spinner_scores_csr", (row_ptr, dst, w, labels, out), v, k,
-                warps, stream)
+        _build.launch("spinner_scores", _SIGNATURES, "spinner_scores_csr",
+                      (row_ptr, dst, w, labels, out), v, k, warps, stream)
     spinner_scores.launches += 1
     return out
 
@@ -111,9 +90,9 @@ def fused_update(labels: torch.Tensor, row_ptr: torch.Tensor,
     """
     v = _check_csr(labels, row_ptr, dst, w, k)
     dev = labels.device
-    _check("deg_w", deg_w, torch.float32, (v,), dev)
-    _check("pen", pen, torch.float32, (k,), dev)
-    _check("noise", noise, torch.float32, (v, k), dev)
+    _build.check("deg_w", deg_w, torch.float32, (v,), dev)
+    _build.check("pen", pen, torch.float32, (k,), dev)
+    _build.check("noise", noise, torch.float32, (v, k), dev)
     if not 0 <= num_real <= v:
         raise ValueError(f"num_real={num_real} outside [0, {v}]")
     if dev.type == "cpu":
@@ -129,11 +108,11 @@ def fused_update(labels: torch.Tensor, row_ptr: torch.Tensor,
         return best, tot_best, tot_cur, m_partial
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _launch("fused_update_csr",
-                (row_ptr, dst, w, labels, deg_w, pen, noise, best, tot_best,
-                 tot_cur, m_partial),
-                v, int(num_real), k, float(current_bonus),
-                int(bool(degree_weighted)), warps, stream)
+        _build.launch("spinner_scores", _SIGNATURES, "fused_update_csr",
+                      (row_ptr, dst, w, labels, deg_w, pen, noise, best,
+                       tot_best, tot_cur, m_partial),
+                      v, int(num_real), k, float(current_bonus),
+                      int(bool(degree_weighted)), warps, stream)
     fused_update.launches += 1
     return best, tot_best, tot_cur, m_partial
 
