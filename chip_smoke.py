@@ -36,6 +36,20 @@ about 128 M directed CSR entries, k = 32):
       placements; one superstep split into its parts; and on the medium
       graph (with (d)'s labels) the kernels' runs against the plain
       versions' and against the numpy oracles;
+  (g) the continuous-partitioning session on the full graph: (g1) the
+      fused kernel's frontier variant at full size on (c)'s labels under
+      two masks -- the dirty set of a 64,000-pair batch expanded one hop,
+      and a seeded 10% -- bitwise equal to its plain version (inactive
+      rows the no-op proposal), timed beside the base form with its byte
+      bound at that active fraction, and one frontier iteration split into
+      draws / kernel / expansion / epilogue; (g2) ``open_session(graph,
+      SpinnerConfig(k=32))`` running ``partition()``, ``adapt(edge_updates=
+      B1, frontier=True)`` (64,000 pairs, 0.1% of the edges) and
+      ``adapt(edge_updates=B2)`` (640,000 pairs), once on the CUDA backend
+      and once on the torch scatter oracle: identical results, two fast
+      adapts, no host rebuild, the variant launched once per frontier
+      iteration; (g3) on the medium graph, the fast path's dense adapt
+      equal to the rebuilt graph's run;
   (e) one JSON line describing each kernel.
 
 Exits non-zero, printing no result, if there is no CUDA device or any
@@ -58,6 +72,7 @@ F32_OPS_PER_S = 67e12              # H100 SXM float32 outside tensor cores
 FULL_N, MEDIUM_N, DEG, BETA, K = 4_000_000, 200_000, 16, 0.3, 32
 SPLIT_ITERS = 8                    # depth of the score-matrix path run
 PAGERANK_ITERS = 20
+B1_PAIRS, B2_PAIRS = 64_000, 640_000   # 0.1% and 1% of the full graph's edges
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/spinner_scores.cu"
 PREGEL_SOURCE = "src/repro_torch/kernels/csrc/pregel_combine.cu"
 PREGEL_TPU = "src/repro/kernels/pregel_combine.py"
@@ -677,6 +692,257 @@ def phase_apps_medium(g, labels: np.ndarray, dev) -> None:
               f"({a.supersteps} supersteps)", flush=True)
 
 
+def edge_batch(v: int, n: int, seed: int) -> tuple:
+    """``n`` random (src, dst) pairs over ``v`` vertices, from ``seed``."""
+    gen = np.random.default_rng(seed)
+    return gen.integers(0, v, n), gen.integers(0, v, n)
+
+
+def frontier_bound(csr, active: torch.Tensor, k: int) -> dict:
+    """The least time of one frontier-variant call at this mask: the bytes
+    it must move -- the mask, labels and three outputs for every row; the
+    row pointers, degree, noise row and edges (dst + w) of active rows
+    only; pen in and M(l) out -- over the memory rate, against its
+    operations (an add per active edge, ~5 per active (row, label)) over
+    the float32 rate."""
+    v = active.numel()
+    need = torch.zeros(v + 1, dtype=torch.bool, device=active.device)
+    need[:-1] |= active
+    need[1:] |= active
+    n_act = int(active.sum())
+    edges = int((csr.row_ptr[1:] - csr.row_ptr[:-1])[active].sum())
+    nbytes = (v * (1 + 4 + 12) + int(need.sum()) * 8
+              + n_act * (4 + 4 * k) + edges * 8 + 2 * k * 4)
+    ops = edges + 5 * k * n_act
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes=nbytes, active_rows=n_act, active_edges=edges,
+                active_fraction=n_act / v)
+
+
+def phase_frontier_kernel(graph, padded, labels_np: np.ndarray, dev,
+                          report: dict) -> None:
+    """(g1) The frontier variant at full size on (c)'s labels, and one
+    frontier iteration split into its parts."""
+    from repro_torch import rng
+    from repro_torch.core import EngineOptions, SpinnerConfig, engine
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.spinner_scores import (fused_update,
+                                                    fused_update_frontier)
+
+    cfg = SpinnerConfig(k=K)
+    opts = EngineOptions(device=dev, engine="fused")
+    bind, _ = engine.make_bind(graph, cfg, opts, dev, frontier=True)
+    csr = padded.to_device(dev)
+    v = padded.num_vertices
+    labels = engine.pad_labels(torch.from_numpy(labels_np).to(dev), v)
+    loads = engine.device_loads(labels, csr.deg_w, K)
+    pen = loads / bind.capacity
+    k_noise, k_mig = rng.split(rng.split(rng.PRNGKey(7))[1])
+    noise = rng.uniform(k_noise, (v, K), 0.0, cfg.tie_noise, device=dev)
+    u = rng.uniform(k_mig, (v,), device=dev)
+    src, dst = edge_batch(graph.num_vertices, B1_PAIRS, seed=0)
+    ends = torch.zeros(v, dtype=torch.bool, device=dev)
+    ends[torch.from_numpy(np.concatenate([src, dst])).to(dev)] = True
+    masks = {
+        "dirty": (ends | engine.frontier_touched(ends, bind.frontier))
+        & bind.valid,
+        "random10": torch.from_numpy(np.random.default_rng(14).random(v)
+                                     < 0.1).to(dev) & bind.valid}
+    base = (csr.row_ptr, csr.dst, csr.weight)
+
+    def variant(mask):
+        return fused_update_frontier(labels, *base, csr.deg_w, pen, noise,
+                                     mask, K, cfg.current_bonus, True)
+
+    def plain(mask):
+        return ref.frontier_propose_ref(labels, csr.src, csr.dst, csr.weight,
+                                        csr.deg_w, pen, noise, mask, K,
+                                        cfg.current_bonus, True)
+
+    out = {}
+    for name, mask in masks.items():
+        got, want = variant(mask), plain(mask)
+        torch.cuda.synchronize()
+        check(float(want[3].max()) < 2**24, "M(l) reached 2^24")
+        for field, a, b in zip(("best", "tot_best", "tot_cur", "m"), got,
+                               want):
+            check(bits_equal(a, b), f"fused_update_frontier_csr {field} != "
+                  f"frontier_propose_ref ({name} mask)")
+        off = ~mask
+        check(torch.equal(got[0][off], labels[off])
+              and not bool(got[1][off].any()) and not bool(got[2][off].any()),
+              f"inactive rows not the no-op proposal ({name} mask)")
+        err = max_abs_err(zip(got, want))
+        del got, want
+        bound = frontier_bound(csr, mask, K)
+        out[name] = dict(max_abs_err=err,
+                         ms=time_ms(lambda: variant(mask), reps=20),
+                         plain_ms=time_ms(lambda: plain(mask), reps=5),
+                         **bound)
+        print(f"(g1) fused_update_frontier_csr, {name} mask (active "
+              f"{bound['active_rows']} rows = "
+              f"{bound['active_fraction']:.6f}, {bound['active_edges']} "
+              f"edges): bitwise equal to the plain version (max_abs_err "
+              f"{err}); {out[name]['ms']:.3f} ms, plain "
+              f"{out[name]['plain_ms']:.3f} ms, bound "
+              f"{bound['bound_ms']:.3f} ms for {bound['bytes']} B",
+              flush=True)
+    base_ms = time_ms(lambda: fused_update(
+        labels, *base, csr.deg_w, pen, noise, bind.num_real, K,
+        cfg.current_bonus, True), reps=20)
+    print(f"(g1) the base form on the same labels: {base_ms:.3f} ms",
+          flush=True)
+
+    # one frontier iteration at the dirty mask, split into its parts
+    _, finish = engine.make_update_parts(K, degree_weighted=True,
+                                         current_bonus=cfg.current_bonus)
+    mask = masks["dirty"]
+    fbind = bind._replace(valid=mask)
+    parts = variant(mask)
+    new_labels = finish(*parts, labels, csr.deg_w, loads, u, mask,
+                        bind.capacity)[0]
+    changed = new_labels != labels
+    step = engine.make_frontier_step(cfg, opts)
+    state = engine.init_state(labels, loads, rng.PRNGKey(3))
+    split = {
+        "rng_ms": time_ms(lambda: (
+            rng.uniform(k_noise, (v, K), 0.0, cfg.tie_noise, device=dev),
+            rng.uniform(k_mig, (v,), device=dev)), reps=3, warmup=1),
+        "kernel_ms": out["dirty"]["ms"],
+        "expansion_ms": time_ms(lambda: engine.frontier_touched(
+            changed, bind.frontier), reps=10),
+        "epilogue_ms": time_ms(lambda: (
+            finish(*parts, labels, csr.deg_w, loads, u, fbind.valid,
+                   bind.capacity), (parts[0] != labels) & mask,
+            mask.to(torch.float32).sum()), reps=10),
+        "step_ms": time_ms(lambda: step(state, mask, bind), reps=3,
+                           warmup=1),
+    }
+    print("(g1) one frontier iteration (dirty mask): " + " ".join(
+        f"{k}={x:.3f}" for k, x in split.items()), flush=True)
+    report["fused_update_frontier_csr"] = dict(
+        out["dirty"], random10=out["random10"], base_form_ms=base_ms)
+    report["frontier_split"] = split
+
+
+def phase_session(graph, dev, report: dict) -> None:
+    """(g2) The session on the full graph, on both score backends."""
+    from repro_torch.core import EngineOptions, SpinnerConfig, open_session
+    from repro_torch.kernels.spinner_scores import (fused_update,
+                                                    fused_update_frontier,
+                                                    spinner_scores)
+
+    v, e = graph.num_vertices, graph.num_directed_entries
+    b1 = edge_batch(v, B1_PAIRS, seed=0)
+    b2 = edge_batch(v, B2_PAIRS, seed=1)
+    runs = {}
+    for backend in ("cuda", "torch"):
+        s = open_session(graph, SpinnerConfig(k=K), EngineOptions(
+            engine="fused", device=dev, score_backend=backend))
+        calls = {}
+        for name, call in (
+                ("partition", lambda: s.partition()),
+                ("adapt_b1_frontier",
+                 lambda: s.adapt(edge_updates=b1, frontier=True)),
+                ("adapt_b2", lambda: s.adapt(edge_updates=b2))):
+            fused_update.launches = spinner_scores.launches = 0
+            fused_update_frontier.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = call()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n_var, n_base = fused_update_frontier.launches, \
+                fused_update.launches
+            st = s.stats()
+            sent = st["delta"]["last_upload_bytes"] if name != "partition" \
+                else 0
+            calls[name] = dict(res=r, wall_s=wall, upload_bytes=sent,
+                               variant_launches=n_var, base_launches=n_base)
+            print(f"(g2) {backend} {name}: iterations={r.iterations} "
+                  f"halted={r.halted} wall={wall:.3f}s "
+                  f"kernel launches base={n_base} frontier={n_var}"
+                  + (f" upload={sent} B ({sent / (12 * e):.6f} of 12*E)"
+                     if name != "partition" else "")
+                  + (f" uploads={st['uploads']}"), flush=True)
+        st = s.stats()
+        s.close()
+        d = st["delta"]
+        check(d["fast_adapts"] == 2 and d["host_rebuilds"] == 0
+              and d["fallback_adapts"] == 0 and st["uploads"] <= 1,
+              f"{backend} session: {d}, uploads {st['uploads']}")
+        front = calls["adapt_b1_frontier"]
+        if backend == "cuda":
+            check(front["variant_launches"] == front["res"].iterations >= 1
+                  and front["base_launches"] == 0,
+                  f"frontier variant launched {front['variant_launches']} "
+                  f"times in {front['res'].iterations} iterations")
+            for name in ("partition", "adapt_b2"):
+                check(calls[name]["base_launches"]
+                      == calls[name]["res"].iterations,
+                      f"{name}: fused kernel launches != iterations")
+        else:
+            check(all(c["variant_launches"] == c["base_launches"] == 0
+                      for c in calls.values()), "torch session launched")
+        runs[backend] = (calls, d)
+    for name in runs["cuda"][0]:
+        a, b = runs["cuda"][0][name]["res"], runs["torch"][0][name]["res"]
+        check(np.array_equal(a.labels, b.labels)
+              and np.array_equal(a.loads, b.loads)
+              and (a.iterations, a.halted, a.scored_per_iter)
+              == (b.iterations, b.halted, b.scored_per_iter),
+              f"{name}: cuda and torch sessions diverged")
+    check(runs["cuda"][1] == runs["torch"][1], "delta counters differ")
+    front = runs["cuda"][0]["adapt_b1_frontier"]["res"]
+    frac = [x / v for x in front.scored_per_iter]
+    below = next((i + 1 for i, x in enumerate(frac) if x < 0.005), None)
+    print(f"(g2) cuda and torch sequences identical; delta counters "
+          f"{runs['cuda'][1]}; frontier scored fraction at iteration "
+          + ", ".join(f"{i}: {frac[i - 1]:.6f}" for i in
+                      (1, 2, 3, 5, 10, 20, 50, 100, 200, 300)
+                      if i <= len(frac))
+          + f"; below 0.5% from iteration {below}; mean "
+          f"{statistics.mean(frac):.6f} over {len(frac)}", flush=True)
+    report["session"] = {
+        backend: {name: dict(iterations=c["res"].iterations,
+                             halted=c["res"].halted, wall_s=c["wall_s"],
+                             upload_bytes=c["upload_bytes"])
+                  for name, c in calls.items()}
+        for backend, (calls, _) in runs.items()}
+    report["session"]["frontier_scored_fraction"] = frac
+    report["fused_update_frontier_csr"]["launches"] = \
+        runs["cuda"][0]["adapt_b1_frontier"]["variant_launches"]
+
+
+def phase_session_medium(g, dev) -> None:
+    """(g3) On the medium graph: the fast path's dense adapt against the
+    rebuilt graph's run (the fallback oracle)."""
+    from repro_torch.core import (EngineOptions, SpinnerConfig, add_edges,
+                                  open_session)
+
+    cfg = SpinnerConfig(k=K)
+    opts = EngineOptions(engine="fused", device=dev)
+    batch = edge_batch(g.num_vertices, 16_000, seed=2)
+    s = open_session(g, cfg, opts)
+    base = s.partition()
+    fast = s.adapt(edge_updates=batch, frontier=False)
+    d = s.stats()["delta"]
+    check(d["fast_adapts"] == 1 and d["host_rebuilds"] == 0,
+          f"medium fast path not taken: {d}")
+    oracle = open_session(add_edges(g, *batch), cfg, opts).adapt(
+        prev=base.labels)
+    check(np.array_equal(fast.labels, oracle.labels)
+          and np.array_equal(fast.loads, oracle.loads)
+          and fast.iterations == oracle.iterations,
+          "medium fast adapt differs from the rebuilt graph's run")
+    print(f"(g3) medium V={g.num_vertices}: fast adapt of 16,000 pairs "
+          f"identical to the rebuilt graph's run ({fast.iterations} "
+          f"iterations)", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -719,6 +985,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_apps(graph, labels, dev, report)
     phase_apps_medium(*medium, dev)
+    torch.cuda.empty_cache()
+    phase_frontier_kernel(graph, padded, labels, dev, report)
+    torch.cuda.empty_cache()
+    phase_session(graph, dev, report)
+    phase_session_medium(medium[0], dev)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB", flush=True)
 
@@ -739,6 +1010,20 @@ def main() -> int:
                  "replaces": f"{PREGEL_TPU}:{line}", **report[name]}
                 for name, line in (("pregel_reduce_csr", 132),
                                    ("pregel_combine_csr", 175))]
+    front = report["fused_update_frontier_csr"]
+    kernels.append({
+        "name": "fused_update_frontier_csr", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": f"{tpu}:241",
+        "variant": "tile_act (has_act=True)", "launches": front["launches"],
+        "max_abs_err": max(front["max_abs_err"],
+                           front["random10"]["max_abs_err"]),
+        "ms": front["ms"], "plain_ms": front["plain_ms"],
+        "bound_ms": front["bound_ms"], "bound_by": front["bound_by"],
+        "library_ms": None, "active_fraction": front["active_fraction"],
+        "ms_random10": front["random10"]["ms"],
+        "plain_ms_random10": front["random10"]["plain_ms"],
+        "bound_ms_random10": front["random10"]["bound_ms"],
+        "base_form_ms_same_labels": front["base_form_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

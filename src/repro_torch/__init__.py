@@ -14,7 +14,9 @@ on the CUDA card unless the caller asks for the CPU::
 Ported so far: single-device ``partition`` (fused, chunked and host
 runners), the threefry generator that matches ``jax.random`` bit for
 bit (``rng``), the CSR score and Pregel combine kernels (``kernels``),
-and the single-device Pregel applications (``apps``)::
+the single-device Pregel applications (``apps``), and the single-device
+continuous-partitioning session (``core.open_session``: ``adapt`` with
+the on-device delta merge and frontier reconvergence, ``resize``)::
 
     from repro_torch.apps import run_app
     run_app(g, res.labels, "pagerank")

@@ -15,7 +15,15 @@ The pieces mirror the reference engine:
     order differs).
   * the runners: ``run_fused`` / ``run_chunked`` share one chunk loop, and
     ``make_host_step`` is the per-iteration step of the host loop in
-    ``spinner.py``.
+    ``session.py``.
+  * frontier mode (``make_frontier_step`` / ``make_frontier_runner`` /
+    ``run_frontier``): dirty-set reconvergence after a small edge delta --
+    only ``real & active`` vertices are scored, the active set grows one
+    hop per iteration along edges out of vertices that changed label, and
+    the run halts when no active vertex wants to move.
+  * the session's delta fast path: ``merge_delta`` (the on-device merge of
+    an appended batch) and ``device_loads`` (loads from labels on the
+    device).
 
 PyTorch has no device-side while loop, so the chunk loop syncs with the
 host once per chunk and sizes each chunk so the run cannot halt before
@@ -24,7 +32,8 @@ run with ``stall`` s cannot halt within ``halt_window - s - 1`` steps.
 No kernel is launched after the halt, and iteration counts equal the
 reference's.  Inside the chunk the halting state is a device mask: a step
 on a halted state passes it through unchanged, as the reference's guarded
-scan does.
+scan does.  A frontier run can drain at any step, so its loop reads the
+drained flag (with the step's scored count) once per iteration instead.
 """
 from __future__ import annotations
 
@@ -171,6 +180,7 @@ class GraphBind(NamedTuple):
     valid: torch.Tensor        # (V_pad,) bool, arange < num_real
     score: tuple               # score backend's device arrays
     hist: tuple = ()           # (src, dst, real_entry, ideal, real_e)
+    frontier: tuple = ()       # ((src, dst), ...) expansion segments
 
 
 def graph_buckets(graph: Graph) -> Tuple[int, int]:
@@ -205,8 +215,13 @@ def pad_labels(labels: torch.Tensor, v_pad: int) -> torch.Tensor:
 
 
 def make_bind(graph: Graph, cfg, opts: EngineOptions, device,
-              hist: bool = False) -> Tuple[GraphBind, Graph]:
-    """The bind of one run: the padded graph's arrays on ``device``."""
+              hist: bool = False, frontier: bool = False
+              ) -> Tuple[GraphBind, Graph]:
+    """The bind of one run: the padded graph's arrays on ``device``.
+
+    With ``frontier`` the padded COO (the shared upload) is the expansion
+    index: pad entries are weight-0 self-loops on pad vertices, which never
+    change label, so they activate nothing."""
     padded, num_real = padded_view(graph, opts)
     csr = padded.to_device(device)
     backend = opts.backend()
@@ -227,7 +242,8 @@ def make_bind(graph: Graph, cfg, opts: EngineOptions, device,
                               device=device),
         num_real=num_real,
         valid=torch.arange(v_pad, device=device) < num_real,
-        score=score, hist=hist_args), padded
+        score=score, hist=hist_args,
+        frontier=((csr.src, csr.dst),) if frontier else ()), padded
 
 
 # ---------------------------------------------------------------------------
@@ -416,13 +432,12 @@ def _state_device(state: SpinnerState, opts: EngineOptions) -> torch.device:
     return state.labels.device
 
 
-def _run_chunks(graph: Graph, cfg, state: SpinnerState, opts: EngineOptions,
-                chunk_size: int, record: bool,
+def _chunk_loop(cfg, opts: EngineOptions, state: SpinnerState,
+                bind: GraphBind, chunk_size: int, record: bool,
                 callback: Optional[Callable] = None
                 ) -> Tuple[SpinnerState, List[dict]]:
-    """The chunk loop behind ``run_fused`` and ``run_chunked``.
+    """The chunk loop on a bound, PADDED state.
 
-    ``state`` covers the real vertices; it is padded in and sliced out.
     Each chunk is at most ``chunk_size`` steps, cut short so that the run
     can only halt at the chunk's last step (see the module docstring);
     the host reads the halting state once per chunk and, with ``record``,
@@ -430,11 +445,7 @@ def _run_chunks(graph: Graph, cfg, state: SpinnerState, opts: EngineOptions,
     """
     if chunk_size < 1:
         raise ValueError(f"chunk_size must be positive, got {chunk_size}")
-    dev = _state_device(state, opts)
-    bind, padded = make_bind(graph, cfg, opts, dev, hist=record)
     step = make_step(cfg, opts)
-    state = state._replace(labels=pad_labels(state.labels,
-                                             padded.num_vertices))
     history: List[dict] = []
     while True:
         halted, stall, it = torch.stack(
@@ -458,7 +469,30 @@ def _run_chunks(graph: Graph, cfg, state: SpinnerState, opts: EngineOptions,
                 history.append(entry)
                 if callback is not None:
                     callback(entry["iteration"], entry)
+    return state, history
+
+
+def _run_chunks(graph: Graph, cfg, state: SpinnerState, opts: EngineOptions,
+                chunk_size: int, record: bool,
+                callback: Optional[Callable] = None
+                ) -> Tuple[SpinnerState, List[dict]]:
+    """The chunk loop behind ``run_fused`` and ``run_chunked``: ``state``
+    covers the real vertices; it is padded in and sliced out."""
+    dev = _state_device(state, opts)
+    bind, padded = make_bind(graph, cfg, opts, dev, hist=record)
+    state = state._replace(labels=pad_labels(state.labels,
+                                             padded.num_vertices))
+    state, history = _chunk_loop(cfg, opts, state, bind, chunk_size, record,
+                                 callback)
     return state._replace(labels=state.labels[:graph.num_vertices]), history
+
+
+def run_bound(cfg, opts: EngineOptions, state: SpinnerState,
+              bind: GraphBind) -> SpinnerState:
+    """Run a PADDED state to the stable state on a given bind (the
+    session's fast path, whose bind holds the merged delta), no history."""
+    return _chunk_loop(cfg, opts, state, bind,
+                       opts.chunk_size or DEFAULT_CHUNK, record=False)[0]
 
 
 def make_fused_runner(graph: Graph, cfg, opts: EngineOptions) -> Callable:
@@ -510,3 +544,176 @@ def make_host_step(graph: Graph, cfg, opts: EngineOptions,
 
     step.v_pad = padded.num_vertices
     return step
+
+
+# ---------------------------------------------------------------------------
+# Frontier mode: dirty-set LPA reconvergence
+# ---------------------------------------------------------------------------
+# After a small edge delta on a converged partition, only the endpoints of
+# changed edges can want to move, and migrations propagate label changes
+# one hop per iteration.  A frontier step scores only the ACTIVE vertex set
+# (valid &= active), expands it along edges out of vertices that changed
+# label, and the run halts when no active vertex wants to move.  Inactive
+# vertices keep their labels and add nothing to any aggregate; the CUDA
+# backend launches the fused kernel's frontier variant, whose inactive
+# rows skip their edges and noise.  Noise and u are still drawn over the
+# whole padded vertex set, so on a converged base the frontier trajectory
+# replays the reference's bit for bit.
+
+def frontier_touched(changed: torch.Tensor, segments: tuple) -> torch.Tensor:
+    """Vertices with an edge to a vertex that changed label, over every
+    ``(src, dst)`` segment (the base COO and the delta)."""
+    hits = torch.zeros(changed.shape[0], dtype=torch.int32,
+                       device=changed.device)
+    for src, dst in segments:
+        hits.index_add_(0, src, changed.index_select(0, dst).to(torch.int32))
+    return hits > 0
+
+
+def make_frontier_step(cfg, opts: EngineOptions) -> Callable:
+    """``step(state, active, bind) -> (state, active, scored)``: one
+    frontier iteration.
+
+    The update math is ``make_step``'s with ``valid`` additionally masked
+    by ``active``; the state's ``halted`` is the drain (no active vertex
+    wants to move), ``stall``/``best_score`` advance as in a dense step;
+    the next active set is ``want | touched``.  ``scored`` is the f32
+    device count of ``valid & active``.
+    """
+    k, tie = cfg.k, cfg.tie_noise
+    eps = float(np.float32(cfg.eps))
+    backend = opts.backend()
+    if opts.resolved_fused_update() == "on":
+        fused = backend.make_fused_update(
+            k, degree_weighted=cfg.migration_weighting == "edges",
+            current_bonus=float(cfg.current_bonus), frontier=True)
+        scores_fn = propose = finish = None
+    else:
+        fused = None
+        scores_fn = backend.make_scores(k)
+        propose, finish = make_update_parts(
+            k, degree_weighted=cfg.migration_weighting == "edges",
+            current_bonus=cfg.current_bonus)
+
+    def step(state: SpinnerState, active: torch.Tensor, bind: GraphBind):
+        key, k_it = rng.split(state.key)
+        v_pad, dev = state.labels.shape[0], state.labels.device
+        k_noise, k_mig = rng.split(k_it)
+        noise = rng.uniform(k_noise, (v_pad, k), 0.0, tie, device=dev)
+        u = rng.uniform(k_mig, (v_pad,), device=dev)
+        fbind = bind._replace(valid=bind.valid & active)
+        valid = fbind.valid
+        if fused is not None:
+            labels, loads, score_g, n_mig, mig_mass, want = fused(
+                state.labels, state.loads, noise, u, fbind)
+        else:
+            scores = scores_fn(state.labels, *bind.score)
+            parts = propose(scores, state.labels, bind.deg_w, state.loads,
+                            noise, valid, bind.capacity)
+            want = (parts[0] != state.labels) & valid
+            labels, loads, score_g, n_mig, mig_mass = finish(
+                *parts, state.labels, bind.deg_w, state.loads, u, valid,
+                bind.capacity)
+        touched = frontier_touched(labels != state.labels, bind.frontier)
+        best, stall, _ = _halting_update(
+            state.best_score, state.stall, score_g, eps, cfg.halt_window)
+        new_state = SpinnerState(
+            labels=labels, loads=loads, key=key, best_score=best,
+            stall=stall, iteration=state.iteration + 1,
+            halted=~want.any(),
+            total_messages=state.total_messages + mig_mass, score=score_g,
+            migrations=n_mig, message_mass=mig_mass)
+        return new_state, want | touched, valid.to(torch.float32).sum()
+
+    return step
+
+
+def frontier_loop(cfg, opts: EngineOptions, state: SpinnerState,
+                  active: torch.Tensor, bind: GraphBind
+                  ) -> Tuple[SpinnerState, List[float]]:
+    """Run a PADDED state in frontier mode until it drains (or reaches
+    ``max_iters``); returns ``(state, scored_per_iteration)``.
+
+    The host reads the drained flag and the step's scored count once per
+    iteration, so nothing is launched after the drain: launches equal
+    iterations.
+    """
+    step = make_frontier_step(cfg, opts)
+    halted, it = torch.stack([state.halted.to(torch.int64),
+                              state.iteration.to(torch.int64)]).tolist()
+    scored: List[float] = []
+    while not halted and it < cfg.max_iters:
+        state, active, count = step(state, active, bind)
+        drained, count = torch.stack(
+            [state.halted.to(torch.float32), count]).tolist()
+        scored.append(count)
+        halted, it = bool(drained), it + 1
+    return state, scored
+
+
+def _pad_active(active, v_pad: int, device) -> torch.Tensor:
+    """An active mask over the real vertices, padded with False."""
+    active = torch.as_tensor(np.asarray(active, bool)).to(device)
+    pad = v_pad - active.shape[0]
+    if pad:
+        active = torch.cat([active, active.new_zeros(pad)])
+    return active
+
+
+def make_frontier_runner(graph: Graph, cfg, opts: EngineOptions) -> Callable:
+    """``runner(state, active) -> (state, scored_per_iteration)`` over the
+    padded layout; accepts a state and an active mask over the REAL
+    vertex set, on the options' device."""
+    opts.resolved_device()          # no card and no device="cpu": raise now
+
+    def runner(state: SpinnerState, active):
+        dev = _state_device(state, opts)
+        bind, padded = make_bind(graph, cfg, opts, dev, frontier=True)
+        v_pad = padded.num_vertices
+        state = state._replace(labels=pad_labels(state.labels, v_pad))
+        out, scored = frontier_loop(cfg, opts, state,
+                                    _pad_active(active, v_pad, dev), bind)
+        return out._replace(labels=out.labels[:graph.num_vertices]), scored
+
+    return runner
+
+
+def run_frontier(graph: Graph, cfg, labels, loads, key: rng.Key, active,
+                 opts: EngineOptions) -> Tuple[SpinnerState, List[float]]:
+    """Frontier-mode run to drain on the options' device:
+    ``(state, scored_per_iteration)``."""
+    return make_frontier_runner(graph, cfg, opts)(
+        init_state(labels, loads, key, device=opts.resolved_device()),
+        active)
+
+
+# ---------------------------------------------------------------------------
+# The session's delta fast path: on-device merge and loads
+# ---------------------------------------------------------------------------
+
+def merge_delta(segment: tuple, new: tuple, deg_w: torch.Tensor) -> tuple:
+    """Append a batch to the delta segment on the device.
+
+    ``segment`` and ``new`` are ``(src int32, dst int32, w f32)`` triples;
+    the merged entries are re-sorted by source (stable, so each row keeps
+    arrival order) and the segment's ``(V_pad + 1,)`` row pointer rebuilt:
+    O(segment + V) device work.  ``deg_w`` gains each new entry's weight
+    at its source (integer sums, exact), out of place: the old degrees
+    stay as they were.  Returns ``(src, dst, w, row_ptr, deg_w)``.
+    """
+    src, dst, w = (torch.cat([a, b]) for a, b in zip(segment, new))
+    order = torch.sort(src, stable=True).indices
+    src, dst, w = src[order], dst[order], w[order]
+    v_pad = deg_w.shape[0]
+    row_ptr = torch.zeros(v_pad + 1, dtype=torch.int64, device=deg_w.device)
+    torch.cumsum(torch.bincount(src, minlength=v_pad), 0, out=row_ptr[1:])
+    return src, dst, w, row_ptr, deg_w.index_add(0, new[0], new[2])
+
+
+def device_loads(labels: torch.Tensor, deg_w: torch.Tensor,
+                 k: int) -> torch.Tensor:
+    """B(l) (Eq. 6) from padded labels and degrees on the device: pads
+    carry zero degree, and the integer-valued float32 degrees make the
+    sum exact in any order, so it equals ``spinner.compute_loads``."""
+    loads = torch.zeros(k, dtype=torch.float32, device=deg_w.device)
+    return loads.index_add_(0, labels.long(), deg_w)

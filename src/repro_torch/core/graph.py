@@ -15,7 +15,7 @@ atomics, so there is no tiled form here.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,6 +59,10 @@ class Graph:
         trajectory.
         """
         return float(self.deg_w.sum())
+
+    def on_device(self, device) -> bool:
+        """Whether ``to_device(device)`` has uploaded the arrays already."""
+        return ("device", str(torch.device(device))) in self._cache
 
     def to_device(self, device) -> DeviceCSR:
         """The CSR arrays on ``device``, uploaded once and cached."""
@@ -134,6 +138,37 @@ def _finish(src, dst, w, num_vertices: int) -> Graph:
     return Graph(num_vertices=num_vertices, src=src.astype(np.int32),
                  dst=dst.astype(np.int32), weight=w, row_ptr=row_ptr,
                  deg_w=deg_w)
+
+
+def add_edges(graph: Graph, new_src, new_dst, directed: bool = True,
+              num_vertices: Optional[int] = None) -> Graph:
+    """Incremental growth (Section 3.4): returns the extended graph.
+
+    ``num_vertices`` may exceed the old count to inject new vertices.
+    Weights are recomputed for touched pairs; untouched edges keep theirs.
+    """
+    V = max(num_vertices or 0, graph.num_vertices,
+            int(np.max(new_src) + 1) if len(new_src) else 0,
+            int(np.max(new_dst) + 1) if len(new_dst) else 0)
+    # Reconstruct a directed view of the old graph: an undirected edge of
+    # weight 2 stands for both directions, weight 1 for the canonical one.
+    half = graph.src < graph.dst
+    u, v, w = graph.src[half], graph.dst[half], graph.weight[half]
+    both = w >= 2
+    old_src = np.concatenate([u, v[both]])
+    old_dst = np.concatenate([v, u[both]])
+    src = np.concatenate([old_src, np.asarray(new_src, np.int32)])
+    dst = np.concatenate([old_dst, np.asarray(new_dst, np.int32)])
+    return from_edges(src, dst, V, directed=directed)
+
+
+def remove_vertices(graph: Graph, vertices) -> Graph:
+    """Drop vertices (keeping ids stable) and their incident edges."""
+    drop = np.zeros(graph.num_vertices, dtype=bool)
+    drop[np.asarray(vertices)] = True
+    keep = ~(drop[graph.src] | drop[graph.dst])
+    return _finish(graph.src[keep], graph.dst[keep], graph.weight[keep],
+                   graph.num_vertices)
 
 
 def shape_bucket(n: int, floor: int = 64) -> int:

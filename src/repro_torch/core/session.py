@@ -1,0 +1,775 @@
+"""PartitionSession: a device-resident handle for continuous partitioning.
+
+Spinner's pitch is CONTINUOUS partitioning (Sections 3.4-3.5): react to a
+stream of graph changes and cluster resizes by restarting from the previous
+assignment, not from scratch.  ``PartitionSession`` holds what such a
+service amortizes::
+
+    from repro_torch.core import EngineOptions, SpinnerConfig, open_session
+
+    opts = EngineOptions(engine="fused")
+    with open_session(g, SpinnerConfig(k=32), opts) as s:
+        res = s.partition()                          # cold: O(E) upload
+        while serving:
+            res = s.adapt(edge_updates=next_batch())  # warm: O(|delta|)
+            res = s.adapt(edge_updates=batch, frontier=True)  # dirty set
+            if cluster_resized(new_k):
+                res = s.resize(new_k)
+
+Lifecycle: ``open -> partition / adapt / resize / update / stage ->
+close``.  The session owns the (graph, config, options) triple, the
+previous stable labels (``adapt``/``resize`` default to them) and, once an
+``edge_updates`` batch arrives, the on-device delta (``core.delta``).  It
+runs at one device; a mesh or ``engine="sharded"`` raises (the sharded
+engine is not ported yet).
+
+Compile accounting has no counterpart here: PyTorch runs eagerly and the
+kernels are built once per source hash, so nothing compiles per graph.
+``stats()`` reports ``uploads`` instead: the O(E) host-to-device uploads
+of a padded CSR that the session's runs caused (``run_app``'s placed
+layout is built and cached by ``repro_torch.apps`` and not counted).  The
+warm-adapt rule is zero new uploads and zero host rebuilds.
+
+Delta-proportional adapt (the ``edge_updates`` fast path): a warm
+``adapt(edge_updates=(src, dst))`` that fits the edge bucket's slack costs
+O(|delta|) on the host and the wire.  The batch is folded through the pair
+ledger and merged into the session's delta segment on the device (no host
+CSR rebuild, no O(E) re-upload); the logical graph update is kept in a
+pending log and only materialized on the host when something needs the
+``Graph`` object (``partition()``, ``stage()``, a growing batch, slack
+overflow -- which falls back to the bit-identical rebuild).  Eligible:
+the fused engine (``engine="fused"``, or ``"auto"`` with
+``record_history=False``) with ``pad="bucket"``, on the torch backend or
+the CUDA backend's fused kernel (its dense score kernel reads no delta
+segment); everything else takes the fallback and is counted in
+``stats()["delta"]["fallback_adapts"]``.  The counters match the
+reference's XLA mode, except the upload bytes, which follow this layout
+(12 bytes an appended entry).
+
+Frontier reconvergence (``adapt(..., frontier=True)``): scores only the
+dirty vertex set -- endpoints of changed pairs on the fast path, the
+batch's endpoints on the fallback, expanded one hop per iteration along
+edges out of vertices that changed label -- and halts when no active
+vertex wants to move (``engine.make_frontier_step``).  The result carries
+``scored_vertices`` / ``scored_per_iter``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+from .. import rng
+from . import delta as _delta
+from . import engine as _engine
+from . import metrics
+from .engine import EngineOptions
+from .graph import Graph, add_edges
+from .incremental import elastic_relabel, extend_labels
+from .spinner import PartitionResult, SpinnerConfig, prepare_init
+
+_ENGINES = ("auto", "fused", "chunked", "host")
+
+# The one closed-session error, shared by every entry point: a serving tier
+# retires sessions aggressively and matches on this message, so it must not
+# vary by code path.
+_CLOSED_MSG = ("PartitionSession is closed; open a new session "
+               "(close() released its state and is idempotent)")
+
+
+@dataclasses.dataclass
+class _DeltaFast:
+    """The session's delta fast-path state (see ``repro_torch.core.delta``).
+
+    Built lazily on the first eligible ``adapt(edge_updates=...)`` -- the
+    one O(E) cold cost (the pair-key index).  ``merged`` counts the prefix
+    of the session's pending log already merged into ``dd``.
+    """
+
+    tracker: _delta.DeltaTracker
+    dd: _delta.DeviceDelta
+    v_pad: int
+    merged: int = 0
+
+
+class PartitionSession:
+    """Device-resident handle: open -> partition/adapt/resize/update -> close.
+
+    See the module docstring for the lifecycle.  All runs go through the
+    same engine runners as the one-shot ``partition``; the session adds the
+    previous-labels memory, the upload accounting and the on-device delta.
+    """
+
+    def __init__(self, graph: Graph, cfg: SpinnerConfig,
+                 options: Optional[EngineOptions] = None):
+        opts = options if options is not None else EngineOptions()
+        if opts.engine == "sharded":
+            raise NotImplementedError(
+                "engine='sharded' is not ported to PyTorch yet (ROADMAP.md "
+                "Slice D)")
+        dev = opts.resolved_device()
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self._device = dev
+        self._pending: List[tuple] = []   # validated directed delta batches
+        self._dirty: Optional[np.ndarray] = None  # endpoints since last run
+        self._delta: Optional[_DeltaFast] = None
+        self._fast_adapts = 0
+        self._fallback_adapts = 0
+        self._host_rebuilds = 0
+        self._delta_bytes_last = 0
+        self._delta_bytes_total = 0
+        self._uploads = 0
+        self.graph = graph
+        self.cfg = cfg
+        self.options = opts
+        self._prev: Optional[np.ndarray] = None
+        self._last: Optional[PartitionResult] = None
+        self._staged: Optional[Graph] = None
+        self._runs = 0
+        self._delta_seq = 0             # delta batches accepted, ever
+        self._closed = False
+
+    # -- the logical graph (base + pending delta log) ----------------------
+
+    @property
+    def graph(self) -> Graph:
+        """The session's logical graph.  Reading it MATERIALIZES any
+        pending edge deltas into a host Graph (one ``add_edges`` rebuild
+        -- the cost the fast path defers); ``stats()`` reports the base
+        graph plus the pending-log counters without materializing."""
+        if self._pending:
+            self._materialize()
+        return self._graph
+
+    @graph.setter
+    def graph(self, g: Graph) -> None:
+        self._graph = g
+        self._pending = []
+        self._dirty = None
+        self._delta = None
+
+    def _materialize(self) -> None:
+        """Fold the pending delta log into a host Graph.  One coalesced
+        ``add_edges`` call: the union-of-directions weight semantics are
+        order-independent, so batching is exact."""
+        pending, self._pending = self._pending, []
+        if not pending:
+            return
+        src = np.concatenate([b[0] for b in pending])
+        dst = np.concatenate([b[1] for b in pending])
+        self._graph = add_edges(self._graph, src, dst)
+        self._host_rebuilds += 1
+        self._delta = None   # the device segment was keyed to the old base
+
+    def _mark_dirty(self, *vertex_sets) -> None:
+        if self._dirty is None:
+            self._dirty = np.zeros(self._graph.num_vertices, bool)
+        for vs in vertex_sets:
+            if len(vs):
+                self._dirty[np.asarray(vs)] = True
+
+    def _note_upload(self, graph: Graph) -> None:
+        """Count the O(E) upload a run on ``graph`` is about to cause: the
+        padded CSR goes to the device once per graph object."""
+        padded, _ = _engine.padded_view(graph, self.options)
+        if not padded.on_device(self._device):
+            self._uploads += 1
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def close(self) -> None:
+        """Release the session's references (graph uploads die with the
+        graph).  Idempotent; every later entry point raises the same
+        ``RuntimeError`` (one fixed message)."""
+        if self._closed:
+            return
+        self._prev = None
+        self._last = None
+        self._staged = None
+        self._pending = []
+        self._delta = None
+        self._dirty = None
+        self._closed = True
+
+    def __enter__(self) -> "PartitionSession":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def _check_open(self) -> None:
+        if self._closed:
+            raise RuntimeError(_CLOSED_MSG)
+
+    # -- the four drivers --------------------------------------------------
+
+    def partition(self, init: Optional[np.ndarray] = None,
+                  record_history: Optional[bool] = None,
+                  callback: Optional[Callable[[int, dict], None]] = None,
+                  ) -> PartitionResult:
+        """Run to a stable state from ``init`` (or a fresh random start)."""
+        self._check_open()
+        return self._run(init, record_history, callback)
+
+    def adapt(self, new_graph: Optional[Graph] = None,
+              prev: Optional[np.ndarray] = None, *,
+              edge_updates: Optional[tuple] = None,
+              num_vertices: Optional[int] = None,
+              record_history: Optional[bool] = None,
+              callback: Optional[Callable[[int, dict], None]] = None,
+              frontier: Optional[bool] = None,
+              ) -> PartitionResult:
+        """Incremental restart (Section 3.4) from the previous labels.
+
+        Rebinds the session to ``new_graph`` (or to the current graph
+        extended by ``edge_updates=(src, dst)``; neither = the snapshot
+        previously ``stage()``-d if one is pending, else re-run on the
+        current graph, e.g. after ``update()``), carries ``prev`` labels
+        (default: the last result) extending new vertices as -1 ->
+        least-loaded, and restarts.
+
+        An ``edge_updates`` delta that fits the slack takes the O(|delta|)
+        fast path (see the module docstring for eligibility); otherwise it
+        falls back to the bit-identical rebuild.  ``frontier=True``
+        reconverges only the dirty vertex set and drain-halts; the
+        result's ``scored_per_iter`` reports per-iteration scored-vertex
+        counts.
+        """
+        self._check_open()
+        if new_graph is not None and edge_updates is not None:
+            raise ValueError("pass at most one of new_graph/edge_updates")
+        batch = None
+        if edge_updates is not None:
+            e_src, e_dst = edge_updates
+            e_src, e_dst = _delta.check_edge_updates(
+                e_src, e_dst, self._graph.num_vertices, num_vertices)
+            self._delta_seq += 1
+            grows = (num_vertices is not None
+                     and num_vertices > self._graph.num_vertices)
+            if not grows:
+                prev_arr = self._require_prev(prev)
+                res = self._try_fast_adapt(e_src, e_dst, prev_arr,
+                                           frontier, record_history,
+                                           callback)
+                if res is not None:
+                    self._staged = None
+                    return res
+                self._fallback_adapts += 1
+            # fallback: the classic host rebuild (bit-identical oracle)
+            new_graph = add_edges(self.graph, e_src, e_dst,
+                                  num_vertices=num_vertices)
+            self._host_rebuilds += 1
+            batch = (e_src, e_dst)
+        prev = self._require_prev(prev)
+        if new_graph is None and self._staged is not None:
+            new_graph = self._staged
+        dirty, old_v = self._dirty, self._graph.num_vertices
+        if new_graph is not None:
+            # any rebinding -- staged or explicit -- supersedes a pending
+            # staged snapshot, built against the graph this call replaces
+            self._staged = None
+            self.graph = new_graph
+        init = extend_labels(prev, self.graph.num_vertices)
+        if frontier:
+            active = self._frontier_active(dirty, old_v, batch,
+                                           full=batch is None)
+            return self._run_frontier(init, active, record_history,
+                                      callback)
+        return self._run(init, record_history, callback)
+
+    def _frontier_active(self, dirty, old_v: int, batch,
+                         full: bool) -> np.ndarray:
+        """Initial active mask for a frontier fallback run: accumulated
+        dirty endpoints + this call's batch endpoints + grown vertices.
+        With no delta provenance at all (``full``) every vertex starts
+        active and frontier mode degenerates to drain-halting LPA."""
+        V = self._graph.num_vertices
+        active = np.zeros(V, bool)
+        if full and dirty is None:
+            active[:] = True
+            return active
+        if dirty is not None:
+            active[:dirty.shape[0]] = dirty
+        active[old_v:] = True
+        if batch is not None:
+            active[batch[0]] = True
+            active[batch[1]] = True
+        return active
+
+    def stage(self, new_graph: Optional[Graph] = None, *,
+              edge_updates: Optional[tuple] = None,
+              num_vertices: Optional[int] = None) -> "PartitionSession":
+        """Double-buffer the NEXT snapshot: build its padded view and
+        upload it now, so a following ``adapt()`` starts from a
+        device-resident bind.  The staged snapshot is consumed by the next
+        argument-less ``adapt()``; staging again replaces it, and any other
+        rebinding (``update()``, ``adapt(new_graph=...)`` /
+        ``adapt(edge_updates=...)``) discards it.  Staging materializes any
+        pending fast-path deltas first.  Chainable."""
+        self._check_open()
+        new_graph = self._graph_delta(new_graph, edge_updates, num_vertices)
+        if new_graph is None:
+            raise ValueError("stage() needs new_graph or edge_updates")
+        self._prestage(new_graph)
+        self._staged = new_graph
+        return self
+
+    def _graph_delta(self, new_graph: Optional[Graph], edge_updates,
+                     num_vertices: Optional[int]) -> Optional[Graph]:
+        """Resolve the mutually-exclusive new_graph/edge_updates pair;
+        ``edge_updates=(src, dst)`` extends the current graph (validated
+        before any state changes)."""
+        if new_graph is not None and edge_updates is not None:
+            raise ValueError("pass at most one of new_graph/edge_updates")
+        if edge_updates is not None:
+            e_src, e_dst = edge_updates
+            e_src, e_dst = _delta.check_edge_updates(
+                e_src, e_dst, self._graph.num_vertices, num_vertices)
+            new_graph = add_edges(self.graph, e_src, e_dst,
+                                  num_vertices=num_vertices)
+            self._host_rebuilds += 1
+        return new_graph
+
+    def _prestage(self, graph: Graph) -> None:
+        """Build the padded view and upload it, as ``_run`` would for
+        ``graph`` (both are cached per graph object, which the later
+        ``adapt()`` receives)."""
+        self._note_upload(graph)
+        padded, _ = _engine.padded_view(graph, self.options)
+        padded.to_device(self._device)
+
+    def resize(self, k_new: int, prev: Optional[np.ndarray] = None,
+               seed: Optional[int] = None,
+               record_history: Optional[bool] = None,
+               callback: Optional[Callable[[int, dict], None]] = None,
+               ) -> PartitionResult:
+        """Elastic restart (Section 3.5, Eq. 10) to ``k_new`` partitions:
+        relabel the previous assignment probabilistically, update the
+        session's config to the new k, and restart."""
+        self._check_open()
+        prev = self._require_prev(prev)
+        k_old = self.cfg.k
+        cfg_new = dataclasses.replace(self.cfg, k=k_new)
+        init = elastic_relabel(prev, k_old, k_new,
+                               seed=cfg_new.seed if seed is None else seed)
+        # run first, commit the new k only on success: a rejected call
+        # (bad history/callback combination) must not leave the session
+        # with k_new but labels from k_old
+        res = self._run(init, record_history, callback, cfg=cfg_new)
+        self.cfg = cfg_new
+        return res
+
+    def update(self, edge_src, edge_dst, num_vertices: Optional[int] = None,
+               directed: bool = True) -> "PartitionSession":
+        """Apply a graph delta WITHOUT running; the next ``adapt()`` (or
+        ``partition()``) sees the extended graph.  Discards any pending
+        staged snapshot.  Same-vertex-set deltas join the session's
+        pending log (validated now, materialized lazily), so a following
+        ``adapt(edge_updates=...)``/``adapt()`` stays on the O(|delta|)
+        fast path; a delta that grows the vertex set rebuilds the host
+        graph right away.  Chainable."""
+        self._check_open()
+        self._staged = None
+        e_src, e_dst = _delta.check_edge_updates(
+            edge_src, edge_dst, self._graph.num_vertices, num_vertices)
+        self._delta_seq += 1
+        if num_vertices is not None \
+                and num_vertices > self._graph.num_vertices:
+            self.graph = add_edges(self.graph, e_src, e_dst,
+                                   directed=directed,
+                                   num_vertices=num_vertices)
+            self._host_rebuilds += 1
+            return self
+        if not directed:
+            e_src, e_dst = (np.concatenate([e_src, e_dst]),
+                            np.concatenate([e_dst, e_src]))
+        self._pending.append((e_src, e_dst))
+        self._mark_dirty(e_src, e_dst)   # conservative: all endpoints
+        return self
+
+    # -- the delta fast path ----------------------------------------------
+
+    def _fast_mode(self, record_history, callback) -> bool:
+        """Whether the session's configuration supports the on-device
+        delta merge (see the module docstring)."""
+        opts = self.options
+        if opts.pad != "bucket":
+            return False                # no slack to fill
+        if callback is not None or record_history is True:
+            return False                # per-iteration visibility paths
+        if opts.engine not in ("auto", "fused"):
+            return False                # chunked/host replay per-iteration
+        if opts.engine == "auto" and record_history is not False:
+            return False                # auto+history resolves to chunked
+        backend = opts.backend()
+        if not hasattr(backend, "delta_args"):
+            return False                # a custom backend reads no delta
+        if getattr(backend, "name", None) == "cuda" \
+                and opts.resolved_fused_update() != "on":
+            return False                # the dense score kernel neither
+        return True
+
+    def _delta_init(self) -> _DeltaFast:
+        """Cold-start the fast path from the CURRENT base graph: pair-key
+        index + an empty device segment over the (cached) upload.  O(E)
+        host work, paid once per base graph."""
+        graph = self._graph
+        self._note_upload(graph)
+        padded, _ = _engine.padded_view(graph, self.options)
+        dd = _delta.init_single_csr(padded.to_device(self._device),
+                                    graph.num_directed_entries)
+        return _DeltaFast(tracker=_delta.DeltaTracker(graph), dd=dd,
+                          v_pad=padded.num_vertices)
+
+    def _fast_prepare(self, e_src, e_dst, prev, record_history,
+                      callback) -> Optional[tuple]:
+        """Merge (pending log + this batch) into the device segment and
+        build the warm restart state.  Returns ``(fs, state)`` or None when
+        ineligible / on slack overflow (-> the caller rebuilds)."""
+        if not self._fast_mode(record_history, callback):
+            return None
+        if prev.shape[0] != self._graph.num_vertices:
+            return None     # shorter prev needs the -1/least-loaded init
+        if self._delta is None:
+            self._delta = self._delta_init()
+        fs = self._delta
+        dd, tracker = fs.dd, fs.tracker
+        nbytes = 0
+        batches = self._pending[fs.merged:] + [(e_src, e_dst)]
+        for bs, bd in batches:
+            out = _delta.apply_delta(tracker, dd, bs, bd,
+                                     _engine.merge_delta)
+            if out is None:
+                return None          # slack overflow -> rebuild fallback
+            dd, plan, b = out
+            nbytes += b
+            self._mark_dirty(plan.touched)
+        self._pending.append((e_src, e_dst))
+        fs.dd, fs.merged = dd, len(self._pending)
+        self._delta_bytes_last = nbytes
+        self._delta_bytes_total += nbytes
+        self._fast_adapts += 1
+
+        key, _ = rng.split(rng.PRNGKey(self.cfg.seed))
+        labels_p = _engine.pad_labels(
+            torch.from_numpy(np.ascontiguousarray(prev)).to(self._device),
+            fs.v_pad)
+        loads = _engine.device_loads(labels_p, fs.dd.deg_w, self.cfg.k)
+        return fs, _engine.init_state(labels_p, loads, key)
+
+    def _fast_bind(self, fs: _DeltaFast,
+                   frontier: bool) -> _engine.GraphBind:
+        """The GraphBind over the base upload plus the merged delta
+        segment (row-for-row what ``make_bind`` builds from a rebuilt host
+        graph, as far as every score sum goes).  The capacity is computed
+        in float64 from the tracked total weight, then made a float32
+        device scalar."""
+        cfg, dd, opts = self.cfg, fs.dd, self.options
+        backend = opts.backend()
+        args_of = (backend.fused_graph_args
+                   if opts.resolved_fused_update() == "on"
+                   else backend.graph_args)
+        score = tuple(args_of(dd.csr))
+        if dd.num_entries:
+            score += tuple(backend.delta_args(dd))
+        num_real = self._graph.num_vertices
+        capacity = cfg.c * fs.tracker.total_weight / cfg.k
+        return _engine.GraphBind(
+            deg_w=dd.deg_w,
+            capacity=torch.tensor(capacity, dtype=torch.float32,
+                                  device=self._device),
+            num_real=num_real,
+            valid=torch.arange(fs.v_pad, device=self._device) < num_real,
+            score=score,
+            frontier=(((dd.csr.src, dd.csr.dst), (dd.src, dd.dst))
+                      if frontier else ()))
+
+    def _try_fast_adapt(self, e_src, e_dst, prev, frontier,
+                        record_history, callback
+                        ) -> Optional[PartitionResult]:
+        """The O(|delta|) adapt: merge on device, restart warm.  Returns
+        None when ineligible or when the batch overflows the slack (-> the
+        caller rebuilds, bit-identically)."""
+        out = self._fast_prepare(e_src, e_dst, prev, record_history,
+                                 callback)
+        if out is None:
+            return None
+        fs, state = out
+        cfg, opts = self.cfg, self.options
+        bind = self._fast_bind(fs, bool(frontier))
+        if frontier:
+            state, hist = _engine.frontier_loop(
+                cfg, opts, state, self._active_mask(fs.v_pad), bind)
+        else:
+            state, hist = _engine.run_bound(cfg, opts, state, bind), None
+        res = self._finish_state(state, self._graph.num_vertices, "fused",
+                                 hist)
+        self._dirty = None
+        return res
+
+    def _active_mask(self, v_pad: int) -> torch.Tensor:
+        active = np.zeros(v_pad, bool)
+        if self._dirty is not None:
+            active[:self._dirty.shape[0]] = self._dirty
+        return torch.from_numpy(active).to(self._device)
+
+    def _finish_state(self, state, num_real: int, eng: str,
+                      hist) -> PartitionResult:
+        iters = int(state.iteration)
+        if hist is not None:
+            per_iter = tuple(float(x) for x in hist[:iters])
+            scored = float(sum(per_iter))
+        else:
+            per_iter, scored = (), -1.0
+        res = PartitionResult(
+            labels=state.labels[:num_real].cpu().numpy(),
+            loads=state.loads.cpu().numpy(), iterations=iters,
+            halted=bool(state.halted), history=[],
+            total_messages=float(state.total_messages), engine=eng,
+            scored_vertices=scored, scored_per_iter=per_iter)
+        self._last = res
+        self._prev = res.labels
+        self._runs += 1
+        return res
+
+    def _run_frontier(self, init, active, record_history,
+                      callback) -> PartitionResult:
+        """Frontier reconvergence on a materialized graph (the fallback
+        compute path; the fast path drives the same loop off its merged
+        device segment)."""
+        if callback is not None or record_history is True:
+            raise ValueError(
+                "frontier=True records only per-iteration scored-vertex "
+                "counts (PartitionResult.scored_per_iter); run without "
+                "frontier for history/callbacks")
+        graph, opts, cfg = self.graph, self.options, self.cfg
+        if opts.engine in ("chunked", "host"):
+            raise ValueError(
+                f"frontier=True requires a while_loop engine (fused/auto), "
+                f"not engine={opts.engine!r}")
+        labels, loads, key = prepare_init(graph, cfg, init,
+                                          device=self._device)
+        self._note_upload(graph)
+        state, hist = _engine.run_frontier(graph, cfg, labels, loads, key,
+                                           active, opts)
+        res = self._finish_state(state, graph.num_vertices, "fused", hist)
+        self._dirty = None
+        return res
+
+    def run_app(self, workload: str, labels: Optional[np.ndarray] = None,
+                **kwargs):
+        """Consume this session's partition: run a Pregel application
+        (``"pagerank"`` / ``"wcc"`` / ``"bfs"`` / ``"sssp"``) on the
+        session graph placed by its labels, through
+        :func:`repro_torch.apps.run_app` on the session's device.
+
+        ``labels`` defaults to the session's current stable assignment
+        (``partition()`` must have run); pass any vector (e.g. the hash
+        baseline) to A/B a placement on the same graph.  Keyword args go
+        to ``run_app`` (``combine``, ``iters``, ``source``, ...).
+        """
+        self._check_open()
+        from ..apps import run_app as _run_app   # lazy: apps imports core
+        if labels is None:
+            labels = self._prev
+            if labels is None:
+                raise ValueError("no labels yet: run partition() first "
+                                 "or pass labels= explicitly")
+        kwargs.setdefault("device", self._device)
+        return _run_app(self.graph, np.asarray(labels), workload, **kwargs)
+
+    # -- introspection -----------------------------------------------------
+
+    @property
+    def labels(self) -> Optional[np.ndarray]:
+        """The previous stable assignment (None before the first run)."""
+        return self._prev
+
+    @property
+    def delta_watermark(self) -> int:
+        """Monotone count of delta batches this session has accepted
+        (``update()`` / ``adapt(edge_updates=)``), whether merged on
+        device, pending, or already materialized."""
+        return self._delta_seq
+
+    def stats(self) -> dict:
+        """Session state: shape buckets, run and upload counters, padded
+        layout and the delta fast-path counters.  Reads the BASE graph --
+        pending fast-path deltas are reported under ``"delta"`` without
+        forcing a host materialization."""
+        self._check_open()
+        graph, opts = self._graph, self.options
+        padded, _ = _engine.padded_view(graph, opts)
+        fs = self._delta
+        d = {
+            "num_vertices": graph.num_vertices,
+            "num_directed_entries": graph.num_directed_entries,
+            "k": self.cfg.k,
+            "engine": opts.engine,
+            "pad": opts.pad,
+            "device": str(self._device),
+            "bucket": (_engine.graph_buckets(graph)
+                       if opts.pad == "bucket" else None),
+            "padded_shape": (padded.num_vertices,
+                             padded.num_directed_entries),
+            "runs": self._runs,
+            "uploads": self._uploads,
+            "staged": (self._staged.num_vertices
+                       if self._staged is not None else None),
+            "delta": {
+                "watermark": self._delta_seq,
+                "pending_batches": len(self._pending),
+                "merged_batches": fs.merged if fs is not None else 0,
+                "fast_adapts": self._fast_adapts,
+                "fallback_adapts": self._fallback_adapts,
+                "host_rebuilds": self._host_rebuilds,
+                "last_upload_bytes": self._delta_bytes_last,
+                "upload_bytes_total": self._delta_bytes_total,
+                "tracked_total_weight": (
+                    fs.tracker.total_weight if fs is not None
+                    else float(graph.total_weight)),
+            },
+            "score_backend": opts.backend().name,
+            "fused_update": opts.resolved_fused_update(),
+        }
+        if self._last is not None:
+            d["last"] = {"iterations": self._last.iterations,
+                         "halted": self._last.halted,
+                         "engine": self._last.engine,
+                         "exchanged_bytes": self._last.exchanged_bytes,
+                         "scored_vertices": self._last.scored_vertices,
+                         "scored_per_iter": self._last.scored_per_iter}
+        return d
+
+    # -- internals ---------------------------------------------------------
+
+    def _require_prev(self, prev) -> np.ndarray:
+        if prev is None:
+            prev = self._prev
+        if prev is None:
+            raise ValueError("no previous labels in this session; run "
+                             "partition() first or pass prev=")
+        return np.asarray(prev, dtype=np.int32)
+
+    def _run(self, init, record_history, callback,
+             cfg: Optional[SpinnerConfig] = None) -> PartitionResult:
+        self._check_open()
+        graph, opts = self.graph, self.options
+        cfg = self.cfg if cfg is None else cfg
+        eng = opts.engine
+        if eng == "auto":
+            eng = ("fused" if record_history is False and callback is None
+                   else "chunked")
+        if eng not in _ENGINES:
+            raise ValueError(f"unknown engine {eng!r}; "
+                             f"available: {', '.join(_ENGINES)}")
+        if eng == "fused":
+            if callback is not None:
+                raise ValueError("engine='fused' cannot invoke a "
+                                 "per-iteration callback; use "
+                                 "engine='chunked' (or 'auto') instead")
+            if record_history is True:
+                raise ValueError("engine='fused' cannot record "
+                                 "per-iteration history; use "
+                                 "engine='chunked' (or 'auto') instead")
+
+        labels, loads, key = prepare_init(graph, cfg, init,
+                                          device=self._device)
+        self._note_upload(graph)
+        if eng == "host":
+            res = self._run_host(cfg, labels, loads, key,
+                                 record_history is not False, callback)
+        else:
+            if eng == "fused":
+                state = _engine.run_fused(graph, cfg, labels, loads, key,
+                                          opts)
+                history = []
+            else:   # chunked
+                record = record_history is not False
+                state, history = _engine.run_chunked(
+                    graph, cfg, labels, loads, key, opts,
+                    chunk_size=opts.chunk_size or _engine.DEFAULT_CHUNK,
+                    callback=callback, record=record)
+                if not record:
+                    history = []     # a callback forces recording
+            res = PartitionResult(
+                labels=state.labels.cpu().numpy(),
+                loads=state.loads.cpu().numpy(),
+                iterations=int(state.iteration),
+                halted=bool(state.halted), history=history,
+                total_messages=float(state.total_messages), engine=eng)
+        self._last = res
+        self._prev = res.labels
+        self._runs += 1
+        self._dirty = None     # a full run reconverges every vertex
+        return res
+
+    def _run_host(self, cfg: SpinnerConfig, labels, loads, key: rng.Key,
+                  record_history: bool, callback) -> PartitionResult:
+        """Per-iteration host loop -- the other runners' oracle.
+
+        Same padded layout and step as the chunk loop; the halting compare
+        runs in numpy float32, matching the device's ``_halting_update``
+        bit for bit.  ``cfg`` arrives from ``_run`` (resize runs the new k
+        before committing it to the session).
+        """
+        graph = self.graph
+        step = _engine.make_host_step(graph, cfg, self.options,
+                                      labels.device)
+        num_real = graph.num_vertices
+        labels = _engine.pad_labels(labels, step.v_pad)
+        best_score = np.float32(-np.inf)
+        eps32 = np.float32(cfg.eps)
+        stall = 0
+        history: List[dict] = []
+        halted = False
+        total_messages = 0.0
+        it = 0
+        for it in range(1, cfg.max_iters + 1):
+            key, k_it = rng.split(key)
+            labels, loads, score_g, n_mig, mig_mass = step(labels, loads,
+                                                           k_it)
+            score_g = np.float32(score_g.item())
+            total_messages += float(mig_mass)
+            if record_history or callback is not None:
+                lab_np = labels[:num_real].cpu().numpy()
+                entry = {
+                    "iteration": it,
+                    "score": float(score_g),
+                    "migrations": int(n_mig),
+                    "message_mass": float(mig_mass),
+                    "phi": metrics.phi(graph, lab_np),
+                    "rho": metrics.rho(graph, lab_np, cfg.k),
+                }
+                if record_history:
+                    history.append(entry)
+                if callback is not None:
+                    callback(it, entry)
+            # on iteration 1 best_score is -inf, tol is inf and best + tol
+            # is NaN: the compare is False (the invalid-op warning is
+            # expected)
+            with np.errstate(invalid="ignore"):
+                tol = eps32 * np.maximum(np.float32(1.0), np.abs(best_score))
+                improved = score_g > best_score + tol
+            best_score = np.maximum(best_score, score_g)
+            if improved:
+                stall = 0
+            else:
+                stall += 1
+                if stall >= cfg.halt_window:
+                    halted = True
+                    break
+        return PartitionResult(labels=labels[:num_real].cpu().numpy(),
+                               loads=loads.cpu().numpy(), iterations=it,
+                               halted=halted, history=history,
+                               total_messages=total_messages, engine="host")
+
+
+def open_session(graph: Graph, cfg: SpinnerConfig,
+                 options: Optional[EngineOptions] = None
+                 ) -> PartitionSession:
+    """Open a device-resident partitioning session."""
+    return PartitionSession(graph, cfg, options)

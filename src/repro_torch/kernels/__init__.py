@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
 
-``spinner_scores`` holds the score kernels' wrappers (``spinner_scores``
-and ``fused_update``), ``pregel_combine`` the Pregel combine kernels'
+``spinner_scores`` holds the score kernels' wrappers (``spinner_scores``,
+``fused_update`` and its frontier variant ``fused_update_frontier``),
+``pregel_combine`` the Pregel combine kernels'
 (``pregel_reduce`` and ``pregel_combine``), ``ref`` their plain versions,
 ``ops`` the score-backend registry the engine uses.
 """

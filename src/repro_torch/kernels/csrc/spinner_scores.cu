@@ -1,28 +1,44 @@
 // Spinner's ComputeScores and fused vertex update over a CSR, for sm_90a.
 //
 // Replaces the TPU kernels in src/repro/kernels/spinner_scores.py:
-//   spinner_scores_csr  <- _kernel / spinner_scores_pallas (K2): the dense
-//                          (V, k) score matrix s[v, l] = sum_{u in N(v)}
-//                          w(v, u) [label(u) = l].
-//   fused_update_csr    <- _fused_kernel / fused_update_pallas (K1): the
-//                          same reduction, then the Eq. 7-8 proposal in the
-//                          epilogue; only (V,) vectors and the (k,) M(l)
-//                          partial reach device memory.
+//   spinner_scores_csr         <- _kernel / spinner_scores_pallas (K2): the
+//                                 dense (V, k) score matrix s[v, l] =
+//                                 sum_{u in N(v)} w(v, u) [label(u) = l].
+//   fused_update_csr           <- _fused_kernel / fused_update_pallas (K1),
+//                                 base form: the same reduction, then the
+//                                 Eq. 7-8 proposal in the epilogue; only
+//                                 (V,) vectors and the (k,) M(l) partial
+//                                 reach device memory.
+//   fused_update_frontier_csr  <- the same kernel with has_act / tile_act
+//                                 (K1's frontier variant): rows outside the
+//                                 (V,) real & active mask skip their edges
+//                                 and noise row and write the no-op
+//                                 proposal best = label, tb = tc = 0; M(l)
+//                                 counts active rows only.  The TPU skips
+//                                 whole tiles with no active vertex; here
+//                                 the skip is per row (one warp per row),
+//                                 which gives the same want, the same M(l)
+//                                 and, on active rows, the same outputs.
 // The TPU kernels turn the scatter into one-hot x one-hot MXU products over
 // a tiled, degree-permuted edge layout because the TPU has no atomics.
 // Hopper has fast shared-memory atomics, so these kernels read the CSR as
 // it is: one warp per vertex row, lanes striding over the row's edges with
 // coalesced dst/w loads, one gathered label per edge, and an atomicAdd into
-// a k-float slice of shared memory owned by the warp.
+// a k-float slice of shared memory owned by the warp.  Both K1 forms also
+// fold a second, optional CSR segment (d_row_ptr / d_dst / d_w, null when
+// absent): the session's on-device delta of appended entries, parallel
+// edges carrying weight changes.
 //
 // Bound on this card: bytes.  Per call the kernels must read row_ptr
 // (8 B/vertex), dst and w (8 B/edge), the labels, and -- for the fused one
 // -- the (V, k) f32 tie noise, and write (V, k) f32 scores or three (V,)
-// vectors.  The label gather (labels[dst[e]], 4 B per edge from a random
-// row) is the access that cannot coalesce; at the main path's 4 M vertices
-// the label vector (16.8 MB) fits in the 50 MB L2.  The design keeps
-// the score row in shared memory so the fused kernel never writes the
-// (V, k) matrix, and flushes M(l) once per block.
+// vectors.  The frontier variant must read the (V,) mask, labels and three
+// outputs for every row but row_ptr, edges, degree and noise only for the
+// active rows.  The label gather (labels[dst[e]], 4 B per edge from a
+// random row) is the access that cannot coalesce; at the main path's 4 M
+// vertices the label vector (16.8 MB) fits in the 50 MB L2.  The design
+// keeps the score row in shared memory so the fused kernel never writes
+// the (V, k) matrix, and flushes M(l) once per block.
 //
 // Exactness: the Eq. 3 weights are 1 or 2, so every score sum is an exact
 // integer in f32 and any order of atomics gives the same bits as the
@@ -84,11 +100,17 @@ __device__ __forceinline__ float eq8_total(float s, float denom, float pen) {
   return __fsub_rn(__fdiv_rn(s, denom), pen);
 }
 
+// kFrontier: `active` is the (V,) real & active mask (1 byte a row); rows
+// outside it write the no-op proposal.  Otherwise rows >= num_real are
+// padding, left out of M(l).
+template <bool kFrontier>
 __global__ void fused_update_kernel(
     const long long* __restrict__ row_ptr, const int* __restrict__ dst,
-    const float* __restrict__ w, const int* __restrict__ labels,
-    const float* __restrict__ deg_w, const float* __restrict__ pen,
-    const float* __restrict__ noise, int* __restrict__ best_out,
+    const float* __restrict__ w, const long long* __restrict__ d_row_ptr,
+    const int* __restrict__ d_dst, const float* __restrict__ d_w,
+    const int* __restrict__ labels, const float* __restrict__ deg_w,
+    const float* __restrict__ pen, const float* __restrict__ noise,
+    const unsigned char* __restrict__ active, int* __restrict__ best_out,
     float* __restrict__ tot_best_out, float* __restrict__ tot_cur_out,
     float* __restrict__ m_out, int num_vertices, int num_real, int k,
     float bonus, int degree_weighted) {
@@ -103,16 +125,27 @@ __global__ void fused_update_kernel(
 
   for (int v = blockIdx.x * warps + warp; v < num_vertices;
        v += gridDim.x * warps) {
+    const int cur = labels[v];
+    if (kFrontier && !active[v]) {
+      // the whole warp skips the row: no edge, degree or noise read
+      if (lane == 0) {
+        best_out[v] = cur;
+        tot_best_out[v] = 0.0f;
+        tot_cur_out[v] = 0.0f;
+      }
+      continue;
+    }
     for (int l = lane; l < k; l += kWarp) acc[l] = 0.0f;
     __syncwarp();
     accumulate_row(row_ptr, dst, w, labels, acc, v, lane);
+    if (d_row_ptr != nullptr)
+      accumulate_row(d_row_ptr, d_dst, d_w, labels, acc, v, lane);
     __syncwarp();
 
     // Eq. 7-8: each lane scans its columns in increasing order, keeping
     // the first maximum of x = (total + noise) + bonus * [l == label].
     const float deg = deg_w[v];
     const float denom = fmaxf(deg, 1.0f);
-    const int cur = labels[v];
     const float* nrow = noise + static_cast<size_t>(v) * k;
     float bval = -CUDART_INF_F;
     int bidx = INT_MAX;
@@ -139,7 +172,8 @@ __global__ void fused_update_kernel(
       best_out[v] = bidx;
       tot_best_out[v] = eq8_total(acc[bidx], denom, pen[bidx]);
       tot_cur_out[v] = eq8_total(acc[cur], denom, pen[cur]);
-      if (v < num_real && bidx != cur)
+      // a frontier row that got here is active, hence real
+      if ((kFrontier || v < num_real) && bidx != cur)
         atomicAdd(&m_block[bidx], degree_weighted ? deg : 1.0f);
     }
     __syncwarp();   // lane 0 has read acc before the next row zeroes it
@@ -148,6 +182,32 @@ __global__ void fused_update_kernel(
   __syncthreads();
   for (int l = threadIdx.x; l < k; l += blockDim.x)
     if (m_block[l] != 0.0f) atomicAdd(&m_out[l], m_block[l]);
+}
+
+template <bool kFrontier>
+int launch_fused(const void* row_ptr, const void* dst, const void* w,
+                 const void* d_row_ptr, const void* d_dst, const void* d_w,
+                 const void* labels, const void* deg_w, const void* pen,
+                 const void* noise, const void* active, void* best,
+                 void* tot_best, void* tot_cur, void* m, int num_vertices,
+                 int num_real, int k, float bonus, int degree_weighted,
+                 int warps, void* stream) {
+  const int threads = warps * kWarp;
+  const size_t smem = static_cast<size_t>(warps + 1) * k * sizeof(float);
+  const int grid = csr::grid_for(fused_update_kernel<kFrontier>,
+                                 num_vertices, threads, smem, warps);
+  fused_update_kernel<kFrontier><<<grid, threads, smem,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(row_ptr), static_cast<const int*>(dst),
+      static_cast<const float*>(w), static_cast<const long long*>(d_row_ptr),
+      static_cast<const int*>(d_dst), static_cast<const float*>(d_w),
+      static_cast<const int*>(labels), static_cast<const float*>(deg_w),
+      static_cast<const float*>(pen), static_cast<const float*>(noise),
+      static_cast<const unsigned char*>(active), static_cast<int*>(best),
+      static_cast<float*>(tot_best), static_cast<float*>(tot_cur),
+      static_cast<float*>(m), num_vertices, num_real, k, bonus,
+      degree_weighted);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -169,25 +229,29 @@ extern "C" int spinner_scores_csr(const void* row_ptr, const void* dst,
 }
 
 extern "C" int fused_update_csr(const void* row_ptr, const void* dst,
-                                const void* w, const void* labels,
-                                const void* deg_w, const void* pen,
-                                const void* noise, void* best,
-                                void* tot_best, void* tot_cur, void* m,
-                                int num_vertices, int num_real, int k,
-                                float bonus, int degree_weighted, int warps,
-                                void* stream) {
-  const int threads = warps * kWarp;
-  const size_t smem = static_cast<size_t>(warps + 1) * k * sizeof(float);
-  const int grid = csr::grid_for(fused_update_kernel, num_vertices,
-                                 threads, smem, warps);
-  fused_update_kernel<<<grid, threads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const long long*>(row_ptr), static_cast<const int*>(dst),
-      static_cast<const float*>(w), static_cast<const int*>(labels),
-      static_cast<const float*>(deg_w), static_cast<const float*>(pen),
-      static_cast<const float*>(noise), static_cast<int*>(best),
-      static_cast<float*>(tot_best), static_cast<float*>(tot_cur),
-      static_cast<float*>(m), num_vertices, num_real, k, bonus,
-      degree_weighted);
-  return static_cast<int>(cudaGetLastError());
+                                const void* w, const void* d_row_ptr,
+                                const void* d_dst, const void* d_w,
+                                const void* labels, const void* deg_w,
+                                const void* pen, const void* noise,
+                                void* best, void* tot_best, void* tot_cur,
+                                void* m, int num_vertices, int num_real,
+                                int k, float bonus, int degree_weighted,
+                                int warps, void* stream) {
+  return launch_fused<false>(row_ptr, dst, w, d_row_ptr, d_dst, d_w, labels,
+                             deg_w, pen, noise, nullptr, best, tot_best,
+                             tot_cur, m, num_vertices, num_real, k, bonus,
+                             degree_weighted, warps, stream);
+}
+
+extern "C" int fused_update_frontier_csr(
+    const void* row_ptr, const void* dst, const void* w,
+    const void* d_row_ptr, const void* d_dst, const void* d_w,
+    const void* labels, const void* deg_w, const void* pen,
+    const void* noise, const void* active, void* best, void* tot_best,
+    void* tot_cur, void* m, int num_vertices, int k, float bonus,
+    int degree_weighted, int warps, void* stream) {
+  return launch_fused<true>(row_ptr, dst, w, d_row_ptr, d_dst, d_w, labels,
+                            deg_w, pen, noise, active, best, tot_best,
+                            tot_cur, m, num_vertices, num_vertices, k, bonus,
+                            degree_weighted, warps, stream);
 }

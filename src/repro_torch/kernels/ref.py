@@ -4,8 +4,11 @@
 is the per-vertex half of the update (Eq. 7-8: normalise, penalty,
 current-label bonus, tie-noise argmax, M(l) partial) in the reference's
 op order; ``fused_propose_ref`` composes the two and is what the fused
-kernel computes.  The CPU path and the tests use these; on a card the
-wrappers in ``spinner_scores`` launch the kernels instead.
+kernel computes, ``frontier_propose_ref`` what its frontier variant
+computes (inactive rows write a no-op proposal).  Both read an optional
+second edge segment, the on-device delta of appended entries.  The CPU
+path and the tests use these; on a card the wrappers in
+``spinner_scores`` launch the kernels instead.
 
 Every score sum is an exact integer in float32 (Eq. 3 weights are 1 or
 2), so any accumulation order gives the same bits and the kernels are
@@ -36,12 +39,17 @@ def csr_src(row_ptr: torch.Tensor) -> torch.Tensor:
 
 def spinner_scores_ref(labels: torch.Tensor, src: torch.Tensor,
                        dst: torch.Tensor, w: torch.Tensor,
-                       num_vertices: int, k: int) -> torch.Tensor:
-    """ComputeScores by scatter-add: scores[u, labels[v]] += w(u, v)."""
-    nbr = labels[dst.long()].long()
+                       num_vertices: int, k: int,
+                       delta: tuple = ()) -> torch.Tensor:
+    """ComputeScores by scatter-add: scores[u, labels[v]] += w(u, v), over
+    the edge list and then the ``delta`` list ``(src, dst, w)`` of appended
+    entries, if any (parallel edges carrying weight changes)."""
     out = torch.zeros((num_vertices, k), dtype=torch.float32,
                       device=labels.device)
-    return out.index_put_((src.long(), nbr), w, accumulate=True)
+    for s, d, we in [(src, dst, w)] + ([tuple(delta)] if delta else []):
+        out.index_put_((s.long(), labels[d.long()].long()), we,
+                       accumulate=True)
+    return out
 
 
 def propose_ref(scores: torch.Tensor, labels: torch.Tensor,
@@ -74,17 +82,42 @@ def fused_propose_ref(labels: torch.Tensor, src: torch.Tensor,
                       dst: torch.Tensor, w: torch.Tensor,
                       deg_w: torch.Tensor, pen: torch.Tensor,
                       noise: torch.Tensor, num_real: int, k: int,
-                      current_bonus: float, degree_weighted: bool) -> tuple:
+                      current_bonus: float, degree_weighted: bool,
+                      delta: tuple = ()) -> tuple:
     """What the fused kernel computes: scores, then ``propose_ref``.
 
     Vertices ``>= num_real`` are padding: they propose like any other
-    vertex but are left out of M(l).
+    vertex but are left out of M(l).  ``delta`` as in
+    ``spinner_scores_ref``.
     """
     v = labels.shape[0]
-    scores = spinner_scores_ref(labels, src, dst, w, v, k)
+    scores = spinner_scores_ref(labels, src, dst, w, v, k, delta)
     valid = torch.arange(v, device=labels.device) < num_real
     return propose_ref(scores, labels, deg_w, pen, noise, valid, k,
                        current_bonus, degree_weighted)
+
+
+def frontier_propose_ref(labels: torch.Tensor, src: torch.Tensor,
+                         dst: torch.Tensor, w: torch.Tensor,
+                         deg_w: torch.Tensor, pen: torch.Tensor,
+                         noise: torch.Tensor, valid: torch.Tensor, k: int,
+                         current_bonus: float, degree_weighted: bool,
+                         delta: tuple = ()) -> tuple:
+    """What the fused kernel's frontier variant computes.
+
+    ``valid`` is the frontier mode's ``real & active`` mask.  Rows inside
+    it propose as in ``fused_propose_ref``; rows outside it are inactive
+    and get ``best = labels``, ``tot_best = tot_cur = 0``.  M(l) counts
+    only rows in ``valid`` whose proposal differs from their label.
+    """
+    v = labels.shape[0]
+    scores = spinner_scores_ref(labels, src, dst, w, v, k, delta)
+    best, tot_best, tot_cur, m_partial = propose_ref(
+        scores, labels, deg_w, pen, noise, valid, k, current_bonus,
+        degree_weighted)
+    return (torch.where(valid, best, labels),
+            torch.where(valid, tot_best, 0.0),
+            torch.where(valid, tot_cur, 0.0), m_partial)
 
 
 def pregel_reduce_ref(send: torch.Tensor, row_ptr: torch.Tensor,

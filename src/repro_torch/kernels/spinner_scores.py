@@ -2,11 +2,15 @@
 
 ``spinner_scores`` computes the dense (V, k) ComputeScores matrix;
 ``fused_update`` computes the same reduction and the Eq. 7-8 proposal in
-one kernel, returning only ``(best, tot_best, tot_cur, m_partial)``.  A
-tensor on the CPU goes to the plain version in ``ref``; a CUDA tensor
-launches the kernel or raises.  Each wrapper counts its launches in a
-plain integer attribute (``spinner_scores.launches``), raised only where
-the kernel is launched, so a run can show that it went through the kernel.
+one kernel, returning only ``(best, tot_best, tot_cur, m_partial)``;
+``fused_update_frontier`` is its frontier variant, which skips the rows
+outside a (V,) active mask.  Both K1 forms also fold an optional second
+CSR segment ``delta = (row_ptr, dst, w)``, the session's on-device delta
+of appended entries.  A tensor on the CPU goes to the plain version in
+``ref``; a CUDA tensor launches the kernel or raises.  Each wrapper counts
+its launches in a plain integer attribute (``spinner_scores.launches``),
+raised only where the kernel is launched, so a run can show that it went
+through the kernel.
 """
 from __future__ import annotations
 
@@ -19,8 +23,10 @@ from . import _build, ref
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "spinner_scores_csr": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
-    "fused_update_csr": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, ctypes.c_float, _I, _I, _P]),
+    "fused_update_csr": (_I, [_P] * 14 + [_I, _I, _I, ctypes.c_float, _I,
+                                          _I, _P]),
+    "fused_update_frontier_csr": (_I, [_P] * 15 + [_I, _I, ctypes.c_float,
+                                                   _I, _I, _P]),
 }
 _WARPS = 8                    # warps (vertex rows in flight) per block
 _SMEM_FLOATS = 48 * 1024 // 4  # static-launch shared memory limit
@@ -76,29 +82,34 @@ def spinner_scores(labels: torch.Tensor, row_ptr: torch.Tensor,
 spinner_scores.launches = 0
 
 
-def fused_update(labels: torch.Tensor, row_ptr: torch.Tensor,
-                 dst: torch.Tensor, w: torch.Tensor, deg_w: torch.Tensor,
-                 pen: torch.Tensor, noise: torch.Tensor, num_real: int,
-                 k: int, current_bonus: float,
-                 degree_weighted: bool) -> tuple:
-    """The Eq. 7-8 proposal straight from the CSR (see ``ref.propose_ref``).
-
-    ``pen`` is the (k,) penalty ``loads / C``; ``noise`` the (V, k) tie
-    noise; vertices ``>= num_real`` are padding, left out of M(l).
-    Returns ``(best int32 (V,), tot_best f32 (V,), tot_cur f32 (V,),
-    m_partial f32 (k,))``; the (V, k) score matrix is never stored.
-    """
+def _check_propose(labels, row_ptr, dst, w, deg_w, pen, noise, k,
+                   delta) -> tuple:
+    """Validate a K1 call; returns ``(v, delta or None)``."""
     v = _check_csr(labels, row_ptr, dst, w, k)
     dev = labels.device
     _build.check("deg_w", deg_w, torch.float32, (v,), dev)
     _build.check("pen", pen, torch.float32, (k,), dev)
     _build.check("noise", noise, torch.float32, (v, k), dev)
-    if not 0 <= num_real <= v:
-        raise ValueError(f"num_real={num_real} outside [0, {v}]")
-    if dev.type == "cpu":
-        return ref.fused_propose_ref(labels, ref.csr_src(row_ptr), dst, w,
-                                     deg_w, pen, noise, num_real, k,
-                                     current_bonus, degree_weighted)
+    if not delta:
+        return v, None
+    d_row_ptr, d_dst, d_w = delta
+    _build.check("delta row_ptr", d_row_ptr, torch.int64, (v + 1,), dev)
+    _build.check("delta dst", d_dst, torch.int32, d_dst.shape, dev)
+    _build.check("delta w", d_w, torch.float32, d_dst.shape, dev)
+    if d_dst.dim() != 1:
+        raise ValueError("delta dst and w must be 1-D")
+    return v, tuple(delta)
+
+
+def _plain_delta(delta) -> tuple:
+    """The delta segment as the plain versions' COO triple."""
+    return () if delta is None else (ref.csr_src(delta[0]), *delta[1:])
+
+
+def _launch_fused(fn: str, labels, row_ptr, dst, w, delta, deg_w, pen,
+                  noise, active, scalars: tuple, k: int) -> tuple:
+    """Allocate K1's outputs and launch C entry ``fn`` on the card."""
+    v, dev = labels.shape[0], labels.device
     warps = _warps(k, 1)
     best = torch.empty(v, dtype=torch.int32, device=dev)
     tot_best = torch.empty(v, dtype=torch.float32, device=dev)
@@ -106,15 +117,78 @@ def fused_update(labels: torch.Tensor, row_ptr: torch.Tensor,
     m_partial = torch.zeros(k, dtype=torch.float32, device=dev)
     if v == 0:
         return best, tot_best, tot_cur, m_partial
+    extra = (None, None, None) if delta is None else delta
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _build.launch("spinner_scores", _SIGNATURES, "fused_update_csr",
-                      (row_ptr, dst, w, labels, deg_w, pen, noise, best,
+        _build.launch("spinner_scores", _SIGNATURES, fn,
+                      (row_ptr, dst, w, *extra, labels, deg_w, pen, noise,
+                       *(() if active is None else (active,)), best,
                        tot_best, tot_cur, m_partial),
-                      v, int(num_real), k, float(current_bonus),
-                      int(bool(degree_weighted)), warps, stream)
-    fused_update.launches += 1
+                      *scalars, warps, stream)
     return best, tot_best, tot_cur, m_partial
 
 
+def fused_update(labels: torch.Tensor, row_ptr: torch.Tensor,
+                 dst: torch.Tensor, w: torch.Tensor, deg_w: torch.Tensor,
+                 pen: torch.Tensor, noise: torch.Tensor, num_real: int,
+                 k: int, current_bonus: float, degree_weighted: bool,
+                 delta: tuple = ()) -> tuple:
+    """The Eq. 7-8 proposal straight from the CSR (see ``ref.propose_ref``).
+
+    ``pen`` is the (k,) penalty ``loads / C``; ``noise`` the (V, k) tie
+    noise; vertices ``>= num_real`` are padding, left out of M(l);
+    ``delta`` an optional second CSR segment ``(row_ptr, dst, w)`` over
+    the same rows.  Returns ``(best int32 (V,), tot_best f32 (V,),
+    tot_cur f32 (V,), m_partial f32 (k,))``; the (V, k) score matrix is
+    never stored.
+    """
+    v, delta = _check_propose(labels, row_ptr, dst, w, deg_w, pen, noise,
+                              k, delta)
+    if not 0 <= num_real <= v:
+        raise ValueError(f"num_real={num_real} outside [0, {v}]")
+    if labels.device.type == "cpu":
+        return ref.fused_propose_ref(labels, ref.csr_src(row_ptr), dst, w,
+                                     deg_w, pen, noise, num_real, k,
+                                     current_bonus, degree_weighted,
+                                     _plain_delta(delta))
+    out = _launch_fused("fused_update_csr", labels, row_ptr, dst, w, delta,
+                        deg_w, pen, noise, None,
+                        (v, int(num_real), k, float(current_bonus),
+                         int(bool(degree_weighted))), k)
+    fused_update.launches += 1
+    return out
+
+
 fused_update.launches = 0
+
+
+def fused_update_frontier(labels: torch.Tensor, row_ptr: torch.Tensor,
+                          dst: torch.Tensor, w: torch.Tensor,
+                          deg_w: torch.Tensor, pen: torch.Tensor,
+                          noise: torch.Tensor, valid: torch.Tensor, k: int,
+                          current_bonus: float, degree_weighted: bool,
+                          delta: tuple = ()) -> tuple:
+    """K1's frontier variant (see ``ref.frontier_propose_ref``).
+
+    ``valid`` is the (V,) bool ``real & active`` mask: rows inside it
+    propose as ``fused_update`` does, rows outside it skip their edges and
+    noise and return ``best = labels``, ``tot_best = tot_cur = 0``; M(l)
+    counts only rows inside it.
+    """
+    v, delta = _check_propose(labels, row_ptr, dst, w, deg_w, pen, noise,
+                              k, delta)
+    _build.check("valid", valid, torch.bool, (v,), labels.device)
+    if labels.device.type == "cpu":
+        return ref.frontier_propose_ref(labels, ref.csr_src(row_ptr), dst,
+                                        w, deg_w, pen, noise, valid, k,
+                                        current_bonus, degree_weighted,
+                                        _plain_delta(delta))
+    out = _launch_fused("fused_update_frontier_csr", labels, row_ptr, dst, w,
+                        delta, deg_w, pen, noise, valid,
+                        (v, k, float(current_bonus),
+                         int(bool(degree_weighted))), k)
+    fused_update_frontier.launches += 1
+    return out
+
+
+fused_update_frontier.launches = 0

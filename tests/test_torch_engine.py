@@ -216,12 +216,14 @@ def test_state_from_export_dict(small_world):
 
 
 def test_imports_neither_jax_nor_reference():
-    """The port (its application layer too) and chip_smoke.py load
-    without JAX or ``repro``."""
+    """The port (its application layer and session too) and
+    chip_smoke.py load without JAX or ``repro``."""
     code = (
         "import sys; sys.path.insert(0, 'src'); sys.path.insert(0, '.')\n"
         "import repro_torch, repro_torch.core, repro_torch.kernels\n"
         "import repro_torch.apps, repro_torch.core.pregel\n"
+        "import repro_torch.core.session, repro_torch.core.delta\n"
+        "import repro_torch.core.incremental\n"
         "import repro_torch.convert, repro_torch.rng, chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"

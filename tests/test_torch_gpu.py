@@ -16,11 +16,13 @@ import torch
 
 from repro_torch import rng
 from repro_torch.apps import build_app_layout, run_app
-from repro_torch.core import (EngineOptions, SpinnerConfig, engine,
-                              generators, partition)
+from repro_torch.core import (EngineOptions, SpinnerConfig, delta, engine,
+                              generators, open_session, partition)
 from repro_torch.kernels import ref
 from repro_torch.kernels.pregel_combine import pregel_combine, pregel_reduce
-from repro_torch.kernels.spinner_scores import fused_update, spinner_scores
+from repro_torch.kernels.spinner_scores import (fused_update,
+                                                fused_update_frontier,
+                                                spinner_scores)
 
 pytestmark = pytest.mark.gpu
 
@@ -194,3 +196,88 @@ def test_run_app_on_card_matches_cpu(cuda, workload):
     np.testing.assert_array_equal(got.device_messages, want.device_messages)
     torch_run = run_app(g, labels, workload, combine="torch", device=cuda)
     assert torch_run.supersteps == got.supersteps
+
+
+def _delta_segment(g, dev, seed):
+    """A merged delta segment over the padded upload of ``g``."""
+    padded, _ = engine.padded_view(g, EngineOptions(device="cpu"))
+    dd = delta.init_single_csr(padded.to_device(dev), g.num_directed_entries)
+    gen = np.random.default_rng(seed)
+    v = g.num_vertices
+    out = delta.apply_delta(delta.DeltaTracker(g), dd, gen.integers(0, v, 40),
+                            gen.integers(0, v, 40), engine.merge_delta)
+    assert out is not None, "the batch overflowed the bucket's slack"
+    return out[0]
+
+
+@pytest.mark.parametrize("kind", ["random10", "sparse", "none", "all"])
+@pytest.mark.parametrize("k", KS)
+def test_frontier_kernel_bitwise(cuda, k, kind):
+    """The frontier variant against its plain version, with and without a
+    delta segment: bitwise on every row (inactive rows are the no-op
+    proposal on both sides)."""
+    g = generators.powerlaw_ba(400, 5, seed=2)
+    dd = _delta_segment(g, cuda, seed=k)
+    v = dd.deg_w.shape[0]
+    gen = np.random.default_rng(11 * k)
+    labels = torch.from_numpy(gen.integers(0, k, v).astype(np.int32)).to(cuda)
+    pen = torch.from_numpy(gen.uniform(0.8, 1.2, k).astype(np.float32)
+                           ).to(cuda)
+    noise = rng.uniform(rng.PRNGKey(k), (v, k), 0.0, 1e-7, device=cuda)
+    real = np.arange(v) < g.num_vertices
+    act = {"random10": real & (gen.random(v) < 0.1),
+           "sparse": real & (np.arange(v) % 97 == 5),
+           "none": np.zeros(v, bool), "all": real}[kind]
+    valid = torch.from_numpy(act).to(cuda)
+    base = (dd.csr.row_ptr, dd.csr.dst, dd.csr.weight)
+    for seg, plain_seg in (((), ()), ((dd.row_ptr, dd.dst, dd.w),
+                                       (dd.src, dd.dst, dd.w))):
+        for weighted in (True, False):
+            n = fused_update_frontier.launches
+            got = fused_update_frontier(labels, *base, dd.deg_w, pen, noise,
+                                        valid, k, 1e-6, weighted, seg)
+            assert fused_update_frontier.launches == n + 1
+            want = ref.frontier_propose_ref(
+                labels, dd.csr.src, dd.csr.dst, dd.csr.weight, dd.deg_w, pen,
+                noise, valid, k, 1e-6, weighted, plain_seg)
+            assert all(_bits_equal(a, b) for a, b in zip(got, want))
+            # the base form folds the same segment
+            got = fused_update(labels, *base, dd.deg_w, pen, noise,
+                               g.num_vertices, k, 1e-6, weighted, seg)
+            want = ref.fused_propose_ref(
+                labels, dd.csr.src, dd.csr.dst, dd.csr.weight, dd.deg_w, pen,
+                noise, g.num_vertices, k, 1e-6, weighted, plain_seg)
+            assert all(_bits_equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("backend", ["cuda", "torch"])
+def test_session_frontier_adapt_on_card_matches_cpu(cuda, backend):
+    """partition, a frontier fast adapt and a dense fast adapt on the card
+    walk the CPU session's trajectory; the variant launches once per
+    frontier iteration."""
+    g = generators.watts_strogatz(3000, 10, 0.25, seed=7)
+    cfg = SpinnerConfig(k=8, seed=3)
+    gen = np.random.default_rng(0)
+    b1 = (gen.integers(0, 3000, 40), gen.integers(0, 3000, 40))
+    b2 = (gen.integers(0, 3000, 80), gen.integers(0, 3000, 80))
+    runs = {}
+    for dev in ("cpu", cuda):
+        s = open_session(g, cfg, EngineOptions(engine="fused", device=dev,
+                                               score_backend=backend))
+        fused_update_frontier.launches = 0
+        runs[str(dev)] = (s.partition(),
+                          s.adapt(edge_updates=b1, frontier=True),
+                          fused_update_frontier.launches,
+                          s.adapt(edge_updates=b2), s.stats())
+    want, got = runs["cpu"], runs[str(cuda)]
+    launches, wst, gst = got[2], want[4], got[4]
+    want, got = (want[0], want[1], want[3]), (got[0], got[1], got[3])
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.labels, b.labels)
+        np.testing.assert_array_equal(a.loads, b.loads)
+        assert (a.iterations, a.halted, a.scored_per_iter) == \
+            (b.iterations, b.halted, b.scored_per_iter)
+    assert launches == (got[1].iterations if backend == "cuda" else 0)
+    assert gst["delta"] == wst["delta"]
+    assert gst["delta"]["fast_adapts"] == 2
+    assert gst["delta"]["host_rebuilds"] == 0 and gst["uploads"] == 1
