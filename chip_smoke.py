@@ -50,6 +50,19 @@ about 128 M directed CSR entries, k = 32):
       adapts, no host rebuild, the variant launched once per frontier
       iteration; (g3) on the medium graph, the fast path's dense adapt
       equal to the rebuilt graph's run;
+  (h) the sharded engine: (h1) K1's seeded (overlap) form at a real
+      frontier -- the full graph's 4-way layout built on the card, and on
+      each shard the score kernel over the interior segment, then the
+      seeded kernel over the frontier against (c)'s labels -- bitwise
+      equal to its plain version and to the base kernel over the whole
+      shard, each timed with its byte bound; (h2) ``partition(engine=
+      "sharded")`` of the full graph on a one-rank NCCL mesh (one card),
+      overlap on and off, identical to (c)'s fused run, no bytes
+      exchanged, the seeded kernel launched once per iteration, the seeded
+      kernel held and timed at that run's shapes, and one iteration split
+      into draws / interior / exchange / seeded kernel / epilogue; (h3) on
+      the medium graph, every exchange plan x overlap on/off x score
+      backend identical to (d)'s run;
   (e) one JSON line describing each kernel.
 
 Exits non-zero, printing no result, if there is no CUDA device or any
@@ -263,6 +276,9 @@ def phase_main_path(graph, padded, dev, report: dict) -> np.ndarray:
           f"rho={rho:.6f} wall={wall:.3f}s "
           f"ms/iteration={wall / res.iterations * 1e3:.3f} "
           f"fused_update_csr launches={k1_launches}", flush=True)
+    report["main_result"] = dict(labels=res.labels, loads=res.loads,
+                                 iterations=res.iterations,
+                                 halted=res.halted)
     report["main_path"] = dict(iterations=res.iterations,
                                halted=res.halted, phi=phi, rho=rho,
                                wall_s=wall,
@@ -353,6 +369,9 @@ def phase_medium_parity(dev, report: dict) -> tuple:
               and res.halted == base.halted,
               f"{key} disagrees with the torch scatter oracle")
     report["medium"] = dict(iterations=base.iterations, halted=base.halted)
+    report["medium_result"] = dict(loads=base.loads,
+                                   iterations=base.iterations,
+                                   halted=base.halted)
     print(f"(d) medium parity V={MEDIUM_N}: cuda/on, cuda/off and torch/off "
           f"identical ({base.iterations} iterations)", flush=True)
     return g, base.labels
@@ -943,11 +962,286 @@ def phase_session_medium(g, dev) -> None:
           f"iterations)", flush=True)
 
 
+def shard_bytes(rows: int, edges: int, lookup_read: int, k: int,
+                seeded: bool, fused: bool) -> int:
+    """The bytes a score-kernel call on one shard's CSR must move: row_ptr
+    (8 B/row), dst and w (8 B/edge), the lookup entries its edges read
+    (4 B each, counted once); the score kernel writes (rows, k) f32; the
+    fused kernel reads the own labels, degrees, pen and (rows, k) noise --
+    the seeded form the (rows, k) partial too -- and writes three (rows,)
+    vectors and M(l)."""
+    nbytes = (rows + 1) * 8 + edges * 8 + lookup_read * 4
+    if not fused:
+        return nbytes + rows * k * 4
+    nbytes += rows * 4 + rows * 4 + k * 4 + rows * k * 4 + 3 * rows * 4 + k * 4
+    return nbytes + (rows * k * 4 if seeded else 0)
+
+
+def phase_sharded_kernels(padded, num_real: int, labels_np: np.ndarray,
+                          dev, report: dict) -> None:
+    """(h1) K1's seeded form at a real frontier: the 4-way layout of the
+    full graph, each shard's interior partial (K2) then the seeded kernel
+    over its frontier, against the plain version and the base kernel over
+    the whole shard."""
+    from repro_torch import rng
+    from repro_torch.core import distributed, engine
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.spinner_scores import (fused_update,
+                                                    fused_update_seeded,
+                                                    spinner_scores)
+
+    ndev, v = 4, padded.num_vertices
+    lookup = engine.pad_labels(torch.from_numpy(labels_np).to(dev), v)
+    deg_all = padded.to_device(dev).deg_w
+    loads = engine.device_loads(lookup, deg_all, K)
+    pen = loads / torch.tensor(1.05 * padded.total_weight / K,
+                               dtype=torch.float32, device=dev)
+    key = rng.split(rng.PRNGKey(21))[0]
+    shards, err = [], 0.0
+    for rank in range(ndev):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sh = distributed.rank_shard(padded, ndev, rank, dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        vl, off = sh.v_local, sh.offset
+        labels = lookup[off:off + vl].contiguous()
+        noise = rng.uniform(key, (vl, K), 0.0, 1e-7, device=dev,
+                            offset=off * K)
+        rp_i, src_i, d_i, w_i = sh.interior
+        rp_f, src_f, d_f, w_f = sh.frontier
+        common = (sh.deg_w, pen, noise, min(num_real - off, vl), K, 1e-6,
+                  True)
+
+        def interior():
+            return spinner_scores(labels, rp_i, d_i, w_i, K)
+
+        partial = interior()
+        plain_partial = ref.interior_partial_ref(labels, rp_i, d_i, w_i, K)
+        torch.cuda.synchronize()
+        check(bits_equal(partial, plain_partial),
+              f"shard {rank}: interior partial != plain")
+        del plain_partial
+
+        def seeded():
+            return fused_update_seeded(labels, rp_f, d_f, w_f, *common,
+                                       partial, lookup=lookup)
+
+        def plain():
+            return ref.fused_propose_ref(labels, src_f, d_f, w_f, *common,
+                                         lookup=lookup, acc_init=partial)
+
+        def base():
+            return fused_update(labels, sh.whole[0], sh.whole[2],
+                                sh.whole[3], *common, lookup=lookup)
+
+        got, want, whole = seeded(), plain(), base()
+        torch.cuda.synchronize()
+        check(float(want[3].max()) < 2**24, "M(l) reached 2^24")
+        for name, a, b, c in zip(("best", "tot_best", "tot_cur", "m"), got,
+                                 want, whole):
+            check(bits_equal(a, b), f"shard {rank}: fused_update_seeded_csr "
+                  f"{name} != plain")
+            check(bits_equal(a, c), f"shard {rank}: fused_update_seeded_csr "
+                  f"{name} != fused_update_csr over the whole shard")
+        err = max(err, max_abs_err(zip(got, want)))
+        del got, want, whole
+        n_i, n_f = d_i.numel(), d_f.numel()
+        reads_i = int(torch.unique(d_i).numel())
+        reads_f = int(torch.unique(d_f).numel())
+        reads_w = int(torch.unique(sh.whole[2]).numel())
+        row = dict(
+            rank=rank, rows=vl, interior_edges=n_i, frontier_edges=n_f,
+            frontier_fraction=n_f / max(n_i + n_f, 1), build_s=build_s,
+            interior_ms=time_ms(interior, reps=20),
+            seeded_ms=time_ms(seeded, reps=20),
+            base_ms=time_ms(base, reps=20),
+            plain_seeded_ms=time_ms(plain, reps=3, warmup=1),
+            interior_bound_ms=shard_bytes(vl, n_i, reads_i, K, False, False)
+            / HBM_BYTES_PER_S * 1e3,
+            seeded_bound_ms=shard_bytes(vl, n_f, reads_f, K, True, True)
+            / HBM_BYTES_PER_S * 1e3,
+            base_bound_ms=shard_bytes(vl, n_i + n_f, reads_w, K, False, True)
+            / HBM_BYTES_PER_S * 1e3)
+        shards.append(row)
+        print(f"(h1) shard {rank}/{ndev}: {vl} rows, {n_i} interior + {n_f} "
+              f"frontier entries ({row['frontier_fraction']:.4f}), built in "
+              f"{build_s:.3f}s; interior partial + fused_update_seeded_csr "
+              f"bitwise equal to the plain version and to fused_update_csr "
+              f"over the whole shard; interior {row['interior_ms']:.3f} ms "
+              f"(bound {row['interior_bound_ms']:.3f}), seeded "
+              f"{row['seeded_ms']:.3f} ms (bound {row['seeded_bound_ms']:.3f},"
+              f" plain {row['plain_seeded_ms']:.3f}), base over the shard "
+              f"{row['base_ms']:.3f} ms (bound {row['base_bound_ms']:.3f})",
+              flush=True)
+        del partial, noise
+    report["sharded_shards"] = shards
+    report["seeded_shard_err"] = err
+
+
+def phase_sharded_main(graph, fused_res: dict, dev, report: dict) -> None:
+    """(h2) ``partition(engine="sharded")`` of the full graph at world size
+    1, overlap on and off, against (c)'s fused run; the seeded kernel at
+    that run's shapes; one iteration split into its parts."""
+    from repro_torch import rng
+    from repro_torch.core import EngineOptions, SpinnerConfig, engine
+    from repro_torch.core import partition
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.spinner_scores import (fused_update,
+                                                    fused_update_seeded,
+                                                    spinner_scores)
+    from repro_torch.launch.mesh import make_partition_mesh
+
+    cfg = SpinnerConfig(k=K)
+    mesh = make_partition_mesh(1, device=dev)
+    runs = {}
+    for overlap in ("on", "off"):
+        opts = EngineOptions(overlap=overlap, device=dev)
+        fused_update.launches = fused_update_seeded.launches = 0
+        spinner_scores.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = partition(graph, cfg, engine="sharded", mesh=mesh,
+                        options=opts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_seed, n_base, n_k2 = (fused_update_seeded.launches,
+                                fused_update.launches,
+                                spinner_scores.launches)
+        check(np.array_equal(res.labels, fused_res["labels"])
+              and np.array_equal(res.loads, fused_res["loads"])
+              and (res.iterations, res.halted)
+              == (fused_res["iterations"], fused_res["halted"]),
+              f"sharded overlap={overlap} differs from (c)'s fused run")
+        check(res.exchanged_bytes == 0.0, "bytes exchanged at world size 1")
+        if overlap == "on":
+            check(n_seed == n_k2 == res.iterations and n_base == 0,
+                  f"overlap: seeded {n_seed}, score {n_k2}, base {n_base} "
+                  f"launches in {res.iterations} iterations")
+        else:
+            check(n_base == res.iterations and n_seed == n_k2 == 0,
+                  f"no overlap: base {n_base}, seeded {n_seed} launches in "
+                  f"{res.iterations} iterations")
+        runs[overlap] = dict(iterations=res.iterations, halted=res.halted,
+                             wall_s=wall, seeded_launches=n_seed,
+                             interior_launches=n_k2, base_launches=n_base,
+                             ms_per_iteration=wall / res.iterations * 1e3)
+        print(f"(h2) partition(engine='sharded', overlap={overlap!r}) at "
+              f"world size 1: iterations={res.iterations} halted="
+              f"{res.halted} wall={wall:.3f}s ms/iteration="
+              f"{wall / res.iterations * 1e3:.3f} exchanged_bytes="
+              f"{res.exchanged_bytes} launches seeded={n_seed} interior="
+              f"{n_k2} base={n_base}; identical to (c)'s fused run",
+              flush=True)
+
+    # the seeded kernel at the main path's shapes (every edge interior, an
+    # empty frontier), and one iteration split into its parts
+    opts = EngineOptions(overlap="on", device=dev)
+    _, plan, step, bind, comm = engine._sharded_parts(graph, cfg, opts, mesh)
+    v = bind.deg_w.shape[0]
+    labels = engine.pad_labels(torch.from_numpy(fused_res["labels"]).to(dev),
+                               v)
+    loads = torch.from_numpy(fused_res["loads"]).to(dev)
+    pen = loads / bind.capacity
+    k_noise, k_mig = rng.split(rng.split(rng.PRNGKey(5))[1])
+    noise = rng.uniform(k_noise, (v, K), 0.0, cfg.tie_noise, device=dev)
+    u = rng.uniform(k_mig, (v,), device=dev)
+    rp_f, d_f, w_f = bind.score[3:]
+    common = (bind.deg_w, pen, noise, bind.num_real_local, K,
+              cfg.current_bonus, True)
+
+    def interior():
+        return spinner_scores(labels, *bind.score[:3], K)
+
+    partial = interior()
+
+    def seeded():
+        return fused_update_seeded(labels, rp_f, d_f, w_f, *common, partial,
+                                   lookup=labels)
+
+    def plain():
+        return ref.fused_propose_ref(labels, ref.csr_src(rp_f), d_f, w_f,
+                                     *common, lookup=labels,
+                                     acc_init=partial)
+
+    got, want = seeded(), plain()
+    torch.cuda.synchronize()
+    for name, a, b in zip(("best", "tot_best", "tot_cur", "m"), got, want):
+        check(bits_equal(a, b), f"fused_update_seeded_csr {name} != plain "
+              f"at the main path's shapes")
+    err = max_abs_err(zip(got, want))
+    _, finish = engine.make_update_parts(K, degree_weighted=True,
+                                         current_bonus=cfg.current_bonus)
+    reduce_ = engine.make_rank_sum(comm)
+    state = engine.init_state(labels, loads, rng.PRNGKey(3))
+    split = {
+        "rng_ms": time_ms(lambda: (
+            rng.uniform(k_noise, (v, K), 0.0, cfg.tie_noise, device=dev,
+                        offset=0),
+            rng.uniform(k_mig, (v,), device=dev, offset=0)), reps=3,
+            warmup=1),
+        "interior_ms": time_ms(interior, reps=20),
+        "exchange_ms": time_ms(lambda: plan.exchange(
+            labels, (), comm, *bind.plan_args), reps=20),
+        "seeded_ms": time_ms(seeded, reps=20),
+        "epilogue_ms": time_ms(lambda: finish(
+            *got, labels, bind.deg_w, loads, u, bind.valid, bind.capacity,
+            reduce_), reps=10),
+        "step_ms": time_ms(lambda: step(state, (), bind), reps=3, warmup=1),
+    }
+    nbytes = shard_bytes(v, d_f.numel(), 0, K, True, True)
+    seeded_row = dict(
+        launches=runs["on"]["seeded_launches"], max_abs_err=err,
+        ms=split["seeded_ms"], plain_ms=time_ms(plain, reps=5),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes)
+    print(f"(h2) fused_update_seeded_csr at the main path's shapes (V_pad="
+          f"{v}, frontier {d_f.numel()} entries): bitwise equal to the plain "
+          f"version; {seeded_row['ms']:.3f} ms, plain "
+          f"{seeded_row['plain_ms']:.3f} ms, bound "
+          f"{seeded_row['bound_ms']:.3f} ms for {nbytes} B", flush=True)
+    print("(h2) one sharded iteration (overlap, world size 1): " + " ".join(
+        f"{k}={x:.3f}" for k, x in split.items()), flush=True)
+    report["fused_update_seeded_csr"] = seeded_row
+    report["sharded_main"] = dict(runs, split=split)
+
+
+def phase_sharded_medium(g, base: np.ndarray, dev, report: dict) -> None:
+    """(h3) The medium graph at world size 1: every plan x overlap x score
+    backend identical to (d)'s run."""
+    from repro_torch.core import EngineOptions, SpinnerConfig, partition
+    from repro_torch.launch.mesh import make_partition_mesh
+
+    mesh = make_partition_mesh(1, device=dev)
+    want = report["medium_result"]
+    n = 0
+    t0 = time.perf_counter()
+    for plan in ("allgather", "halo", "halo_delta", "delta"):
+        for overlap in ("on", "off"):
+            for backend in ("cuda", "torch"):
+                r = partition(g, SpinnerConfig(k=K), engine="sharded",
+                              mesh=mesh, options=EngineOptions(
+                                  label_exchange=plan, overlap=overlap,
+                                  score_backend=backend, device=dev))
+                check(np.array_equal(r.labels, base)
+                      and np.array_equal(r.loads, want["loads"])
+                      and (r.iterations, r.halted)
+                      == (want["iterations"], want["halted"])
+                      and r.exchanged_bytes == 0.0,
+                      f"medium sharded {plan}/{overlap}/{backend} differs "
+                      f"from (d)")
+                n += 1
+    print(f"(h3) medium V={g.num_vertices}: {n} sharded runs (allgather/halo/"
+          f"halo_delta/delta x overlap on/off x cuda/torch) identical to "
+          f"(d)'s run ({want['iterations']} iterations) in "
+          f"{time.perf_counter() - t0:.3f}s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import torch.distributed as dist
     from repro_torch.core import engine, generators
     from repro_torch.kernels import _build
 
@@ -990,6 +1284,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_session(graph, dev, report)
     phase_session_medium(medium[0], dev)
+    torch.cuda.empty_cache()
+    phase_sharded_kernels(padded, graph.num_vertices, labels, dev, report)
+    torch.cuda.empty_cache()
+    phase_sharded_main(graph, report["main_result"], dev, report)
+    phase_sharded_medium(*medium, dev, report)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB", flush=True)
 
@@ -1024,7 +1323,33 @@ def main() -> int:
         "plain_ms_random10": front["random10"]["plain_ms"],
         "bound_ms_random10": front["random10"]["bound_ms"],
         "base_form_ms_same_labels": front["base_form_ms"]})
+    seeded, shards = report["fused_update_seeded_csr"], \
+        report["sharded_shards"]
+    kernels.append({
+        "name": "fused_update_seeded_csr", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": f"{tpu}:241",
+        "variant": "acc_init (has_init=True)", "launches": seeded["launches"],
+        "max_abs_err": max(seeded["max_abs_err"],
+                           report["seeded_shard_err"]),
+        "ms": seeded["ms"], "plain_ms": seeded["plain_ms"],
+        "bound_ms": seeded["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        "ms_4_shards": [r["seeded_ms"] for r in shards],
+        "plain_ms_4_shards": [r["plain_seeded_ms"] for r in shards],
+        "bound_ms_4_shards": [r["seeded_bound_ms"] for r in shards],
+        "frontier_edges_4_shards": [r["frontier_edges"] for r in shards],
+        "base_ms_4_shards": [r["base_ms"] for r in shards]})
+    k2 = next(r for r in kernels if r["name"] == "spinner_scores_csr")
+    k2.update(interior_ms_4_shards=[r["interior_ms"] for r in shards],
+              interior_bound_ms_4_shards=[r["interior_bound_ms"]
+                                          for r in shards],
+              interior_ms_world_1=report["sharded_main"]["split"][
+                  "interior_ms"],
+              launches_overlap=report["sharded_main"]["on"][
+                  "interior_launches"])
     print(json.dumps({"kernels": kernels}))
+    if dist.is_initialized():
+        dist.destroy_process_group()
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

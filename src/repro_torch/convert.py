@@ -24,7 +24,8 @@ from .core.graph import Graph
 _CARRIED = {"best_score": torch.float32, "stall": torch.int32,
             "iteration": torch.int32, "halted": torch.bool,
             "total_messages": torch.float32, "score": torch.float32,
-            "migrations": torch.int32, "message_mass": torch.float32}
+            "migrations": torch.int32, "message_mass": torch.float32,
+            "exchanged_bytes": torch.float32}
 
 
 def graph_from_reference(g) -> Graph:

@@ -1,4 +1,4 @@
-"""Single-device Spinner LPA engine in PyTorch.
+"""Spinner LPA engine in PyTorch: one device, or SPMD over a mesh.
 
 The pieces mirror the reference engine:
 
@@ -24,6 +24,18 @@ The pieces mirror the reference engine:
   * the session's delta fast path: ``merge_delta`` (the on-device merge of
     an appended batch) and ``device_loads`` (loads from labels on the
     device).
+  * the sharded runner (``make_sharded_runner`` / ``run_sharded``): the same
+    iteration SPMD over a ``torch.distributed`` mesh
+    (``repro_torch.launch.mesh``), one process per device, each holding
+    its label shard and its edges (``core.distributed.rank_shard``).  A
+    pluggable exchange plan (``core.comm``) turns the label shards into
+    the lookup the edges read; the (k,) and scalar aggregates are summed
+    over the ranks in rank order, so every rank takes the same halting
+    decision and cuts its chunks at the same iteration.  Under
+    ``overlap="on"`` a step is ``start_exchange -> score the interior
+    segment -> finish_exchange -> score the frontier segment``, the
+    collective in flight while the interior is scored; the result is the
+    same bit for bit (integer Eq. 3 weights make every partial exact).
 
 PyTorch has no device-side while loop, so the chunk loop syncs with the
 host once per chunk and sizes each chunk so the run cannot halt before
@@ -54,9 +66,6 @@ DEFAULT_CHUNK = 32
 V_FLOOR = 64
 E_FLOOR = 128
 
-_SHARDED_ONLY = {"mesh": None, "label_exchange": "auto", "delta_cap": None,
-                 "sharded_noise": "replicated"}
-
 
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on: ``None`` means the CUDA card, and
@@ -82,36 +91,63 @@ class EngineOptions:
     for.  ``score_backend`` is ``"cuda"`` (the CSR kernels; their
     wrappers run the plain versions on CPU tensors) or ``"torch"`` (the
     scatter-add oracle).  ``fused_update="auto"`` turns the fused kernel
-    on for backends that advertise ``fused_auto``.  The sharded engine's
-    options (``mesh``, ``label_exchange``, ``delta_cap``,
-    ``sharded_noise``, ``overlap="on"``) are not ported yet and raise.
+    on for backends that advertise ``fused_auto``.
+
+    The sharded engine's knobs: ``mesh`` (a ``DeviceMesh`` from
+    ``repro_torch.launch.mesh.make_partition_mesh``; ``None`` with
+    ``engine="sharded"`` builds the default one) and its vertex ``axis``;
+    ``label_exchange`` (``core.comm``'s plans: allgather, halo,
+    halo_delta, delta; ``"auto"`` is allgather on one device and delta on
+    more -- identical trajectories, decreasing wire bytes); ``delta_cap``
+    (the delta plan's per-shard buffer, ``None`` = v_per_dev // 4);
+    ``sharded_noise`` (``"replicated"`` draws a shard's rows of the
+    whole padded draw, bit for bit the single-device streams; ``"folded"``
+    folds the rank into the key and draws the shard alone); ``overlap``
+    (``"on"`` scores the interior segment while the exchange is in
+    flight, ``"auto"`` = on over more than one device; bit-identical to
+    ``"off"``).
     """
 
-    engine: str = "auto"             # auto | fused | chunked | host
+    engine: str = "auto"             # auto | fused | chunked | sharded | host
     chunk_size: Optional[int] = None
     score_backend: Union[str, object] = "cuda"
     fused_update: str = "auto"       # auto | on | off
     pad: str = "bucket"              # bucket | none
     device: Optional[Union[str, torch.device]] = None
     mesh: object = None
+    axis: str = "data"
     label_exchange: str = "auto"
     delta_cap: Optional[int] = None
     sharded_noise: str = "replicated"
-    overlap: str = "auto"
+    overlap: str = "auto"            # auto | on | off
 
     def __post_init__(self):
-        if self.overlap not in ("auto", "on", "off"):
+        self.resolved_overlap(1)     # an unknown schedule fails at once
+
+    def resolved_label_exchange(self, ndev: int) -> str:
+        from .comm import EXCHANGE_PLANS     # the one plan registry
+        if self.label_exchange == "auto":
+            return "allgather" if ndev == 1 else "delta"
+        if self.label_exchange not in EXCHANGE_PLANS:
+            raise ValueError(
+                f"unknown label_exchange {self.label_exchange!r}; "
+                f"available: auto, {', '.join(sorted(EXCHANGE_PLANS))}")
+        return self.label_exchange
+
+    def resolved_sharded_noise(self) -> str:
+        if self.sharded_noise not in ("replicated", "folded"):
+            raise ValueError(
+                f"unknown sharded_noise {self.sharded_noise!r}; "
+                "available: replicated, folded")
+        return self.sharded_noise
+
+    def resolved_overlap(self, ndev: int) -> str:
+        if self.overlap == "auto":
+            return "on" if ndev > 1 else "off"
+        if self.overlap not in ("on", "off"):
             raise ValueError(f"unknown overlap {self.overlap!r}; "
                              "available: auto, on, off")
-        set_ = [f for f, unset in _SHARDED_ONLY.items()
-                if getattr(self, f) != unset]
-        if self.overlap == "on":
-            set_.append("overlap")
-        if set_:
-            raise NotImplementedError(
-                f"EngineOptions({', '.join(set_)}) belongs to the sharded "
-                "engine, which the PyTorch port does not have yet (ROADMAP.md "
-                "Slice D)")
+        return self.overlap
 
     def resolved_device(self) -> torch.device:
         return resolve_device(self.device)
@@ -149,6 +185,8 @@ class SpinnerState(NamedTuple):
     score: torch.Tensor          # f32 scalar, score(G) after the last step
     migrations: torch.Tensor     # int32 scalar, migrants in the last step
     message_mass: torch.Tensor   # f32 scalar, migrant degree mass, last step
+    exchanged_bytes: torch.Tensor  # f32 scalar, cumulative label-exchange
+                                   # wire bytes (0 off the sharded engine)
 
 
 def init_state(labels, loads, key: rng.Key, device=None) -> SpinnerState:
@@ -168,6 +206,7 @@ def init_state(labels, loads, key: rng.Key, device=None) -> SpinnerState:
         score=torch.tensor(0.0, **f32),
         migrations=torch.tensor(0, **i32),
         message_mass=torch.tensor(0.0, **f32),
+        exchanged_bytes=torch.tensor(0.0, **f32),
     )
 
 
@@ -262,6 +301,10 @@ def make_update_parts(k: int, *, degree_weighted: bool,
     ``(new_labels, new_loads, score_g, n_mig, mig_mass)``.  ``C`` is a
     float32 device scalar: dividing by a host scalar would let PyTorch
     multiply by its reciprocal instead, which rounds differently.
+
+    ``reduce_`` sums a list of tensors over the shards of a sharded run
+    (the reference's ``psum``; see ``make_rank_sum``): once for M(l), once
+    for the load delta and the three aggregates.  ``None`` at one device.
     """
 
     def propose(scores, labels, deg_w, loads, noise, valid, C):
@@ -269,39 +312,42 @@ def make_update_parts(k: int, *, degree_weighted: bool,
                            k, current_bonus, degree_weighted)
 
     def finish(best, tot_best, tot_cur, m_partial, labels, deg_w, loads,
-               u, valid, C):
+               u, valid, C, reduce_=None):
+        red = reduce_ if reduce_ is not None else (lambda parts: parts)
         want = (best != labels) & valid
         # ---- ComputeMigrations (Eq. 11-12) -----------------------------
+        M, = red([m_partial])                                     # aggregator
         R = torch.clamp(C - loads, min=0.0)                       # Eq. 11
-        p = torch.clamp(R / torch.clamp(m_partial, min=1e-9), 0.0, 1.0)
+        p = torch.clamp(R / torch.clamp(M, min=1e-9), 0.0, 1.0)
         migrate = want & (u < p[best.long()])                     # Eq. 12
         new_labels = torch.where(migrate, best, labels)
         mig_deg = torch.where(migrate, deg_w, 0.0)
         delta = torch.zeros(k, dtype=torch.float32, device=loads.device)
         delta.index_add_(0, best.long(), mig_deg)
         delta.index_add_(0, labels.long(), -mig_deg)
-        new_loads = loads + delta
         # ---- halting aggregate: score(G) at the new assignment (Eq. 9) --
         sel = torch.where(valid, torch.where(migrate, tot_best, tot_cur),
                           0.0)
-        score_g = sel.sum()
-        n_mig = migrate.sum().to(torch.int32)
-        mig_mass = mig_deg.sum()
+        delta, score_g, n_mig, mig_mass = red(                    # aggregators
+            [delta, sel.sum(), migrate.sum().to(torch.int32), mig_deg.sum()])
+        new_loads = loads + delta
         return new_labels, new_loads, score_g, n_mig, mig_mass
 
     return propose, finish
 
 
 def make_vertex_update(cfg) -> Callable:
-    """``update(scores, labels, deg_w, loads, noise, u, valid, C)``: the
-    two halves composed, for the split (dense scores) path."""
+    """``update(scores, labels, deg_w, loads, noise, u, valid, C,
+    reduce_=None)``: the two halves composed, for the split (dense scores)
+    path."""
     propose, finish = make_update_parts(
         cfg.k, degree_weighted=cfg.migration_weighting == "edges",
         current_bonus=cfg.current_bonus)
 
-    def update(scores, labels, deg_w, loads, noise, u, valid, C):
+    def update(scores, labels, deg_w, loads, noise, u, valid, C,
+               reduce_=None):
         parts = propose(scores, labels, deg_w, loads, noise, valid, C)
-        return finish(*parts, labels, deg_w, loads, u, valid, C)
+        return finish(*parts, labels, deg_w, loads, u, valid, C, reduce_)
 
     return update
 
@@ -368,30 +414,43 @@ def make_step(cfg, opts: EngineOptions) -> Callable:
 
     def step(state: SpinnerState, bind: GraphBind) -> SpinnerState:
         key, k_it = rng.split(state.key)
-        labels, loads, score_g, n_mig, mig_mass = iterate(
-            state.labels, state.loads, k_it, bind)
-        best, stall, halted = _halting_update(
-            state.best_score, state.stall, score_g, eps, halt_window)
-        active = ~state.halted & (state.iteration < max_iters)
-
-        def keep(new, old):
-            return torch.where(active, new, old)
-
-        return SpinnerState(
-            labels=keep(labels, state.labels),
-            loads=keep(loads, state.loads),
-            key=key,
-            best_score=keep(best, state.best_score),
-            stall=keep(stall, state.stall),
-            iteration=keep(state.iteration + 1, state.iteration),
-            halted=keep(halted, state.halted),
-            total_messages=keep(state.total_messages + mig_mass,
-                                state.total_messages),
-            score=keep(score_g, state.score),
-            migrations=keep(n_mig, state.migrations),
-            message_mass=keep(mig_mass, state.message_mass))
+        out = iterate(state.labels, state.loads, k_it, bind)
+        return _advance(state, key, *out, eps, halt_window, max_iters)
 
     return step
+
+
+def _advance(state: SpinnerState, key: rng.Key, labels, loads, score_g,
+             n_mig, mig_mass, eps: float, halt_window: int, max_iters: int,
+             xbytes=None) -> SpinnerState:
+    """The state after one iteration's outputs, with the halting update;
+    guarded: on a halted (or ``max_iters``) state the device tensors pass
+    through unchanged.  ``xbytes`` is the step's label-exchange wire
+    bytes (sharded runs)."""
+    best, stall, halted = _halting_update(
+        state.best_score, state.stall, score_g, eps, halt_window)
+    active = ~state.halted & (state.iteration < max_iters)
+
+    def keep(new, old):
+        return torch.where(active, new, old)
+
+    exchanged = state.exchanged_bytes
+    if xbytes is not None:
+        exchanged = keep(exchanged + xbytes, exchanged)
+    return SpinnerState(
+        labels=keep(labels, state.labels),
+        loads=keep(loads, state.loads),
+        key=key,
+        best_score=keep(best, state.best_score),
+        stall=keep(stall, state.stall),
+        iteration=keep(state.iteration + 1, state.iteration),
+        halted=keep(halted, state.halted),
+        total_messages=keep(state.total_messages + mig_mass,
+                            state.total_messages),
+        score=keep(score_g, state.score),
+        migrations=keep(n_mig, state.migrations),
+        message_mass=keep(mig_mass, state.message_mass),
+        exchanged_bytes=exchanged)
 
 
 # ---------------------------------------------------------------------------
@@ -432,20 +491,19 @@ def _state_device(state: SpinnerState, opts: EngineOptions) -> torch.device:
     return state.labels.device
 
 
-def _chunk_loop(cfg, opts: EngineOptions, state: SpinnerState,
-                bind: GraphBind, chunk_size: int, record: bool,
+def _chunk_loop(cfg, state: SpinnerState, advance: Callable,
+                chunk_size: int, record: Optional[Callable] = None,
                 callback: Optional[Callable] = None
                 ) -> Tuple[SpinnerState, List[dict]]:
-    """The chunk loop on a bound, PADDED state.
+    """The chunk loop: ``advance(state) -> state`` steps a PADDED state.
 
     Each chunk is at most ``chunk_size`` steps, cut short so that the run
     can only halt at the chunk's last step (see the module docstring);
-    the host reads the halting state once per chunk and, with ``record``,
-    the chunk's history entries.
+    the host reads the halting state once per chunk and, with ``record``
+    (``record(state) -> entry`` on the device), the chunk's history.
     """
     if chunk_size < 1:
         raise ValueError(f"chunk_size must be positive, got {chunk_size}")
-    step = make_step(cfg, opts)
     history: List[dict] = []
     while True:
         halted, stall, it = torch.stack(
@@ -457,9 +515,9 @@ def _chunk_loop(cfg, opts: EngineOptions, state: SpinnerState,
                        cfg.halt_window - stall))
         recs = []
         for _ in range(n):
-            state = step(state, bind)
-            if record:
-                recs.append(_record(state, bind))
+            state = advance(state)
+            if record is not None:
+                recs.append(record(state))
         if recs:
             cols = {f: torch.stack([r[f].to(torch.float64) for r in recs])
                     .tolist() for f in _RECORD_TYPES}
@@ -482,8 +540,10 @@ def _run_chunks(graph: Graph, cfg, state: SpinnerState, opts: EngineOptions,
     bind, padded = make_bind(graph, cfg, opts, dev, hist=record)
     state = state._replace(labels=pad_labels(state.labels,
                                              padded.num_vertices))
-    state, history = _chunk_loop(cfg, opts, state, bind, chunk_size, record,
-                                 callback)
+    step = make_step(cfg, opts)
+    state, history = _chunk_loop(
+        cfg, state, lambda s: step(s, bind), chunk_size,
+        (lambda s: _record(s, bind)) if record else None, callback)
     return state._replace(labels=state.labels[:graph.num_vertices]), history
 
 
@@ -491,8 +551,9 @@ def run_bound(cfg, opts: EngineOptions, state: SpinnerState,
               bind: GraphBind) -> SpinnerState:
     """Run a PADDED state to the stable state on a given bind (the
     session's fast path, whose bind holds the merged delta), no history."""
-    return _chunk_loop(cfg, opts, state, bind,
-                       opts.chunk_size or DEFAULT_CHUNK, record=False)[0]
+    step = make_step(cfg, opts)
+    return _chunk_loop(cfg, state, lambda s: step(s, bind),
+                       opts.chunk_size or DEFAULT_CHUNK)[0]
 
 
 def make_fused_runner(graph: Graph, cfg, opts: EngineOptions) -> Callable:
@@ -622,7 +683,8 @@ def make_frontier_step(cfg, opts: EngineOptions) -> Callable:
             stall=stall, iteration=state.iteration + 1,
             halted=~want.any(),
             total_messages=state.total_messages + mig_mass, score=score_g,
-            migrations=n_mig, message_mass=mig_mass)
+            migrations=n_mig, message_mass=mig_mass,
+            exchanged_bytes=state.exchanged_bytes)
         return new_state, want | touched, valid.to(torch.float32).sum()
 
     return step
@@ -717,3 +779,279 @@ def device_loads(labels: torch.Tensor, deg_w: torch.Tensor,
     sum exact in any order, so it equals ``spinner.compute_loads``."""
     loads = torch.zeros(k, dtype=torch.float32, device=deg_w.device)
     return loads.index_add_(0, labels.long(), deg_w)
+
+
+# ---------------------------------------------------------------------------
+# The sharded runner: SPMD over a torch.distributed mesh
+# ---------------------------------------------------------------------------
+# Every process runs the same host code on its own shard: the threefry key
+# and every aggregate are replicated (each rank holds the same values), the
+# labels are the rank's (v_local,) shard and the edges its ``RankShard``.
+# The runner takes and returns the whole padded label vector (the same on
+# every rank): it slices the rank's shard in and all-gathers the result out.
+
+class ShardBind(NamedTuple):
+    """Per-rank arguments of one sharded run."""
+
+    deg_w: torch.Tensor        # (v_local,) f32 weighted degrees (0 on pads)
+    capacity: torch.Tensor     # f32 scalar C (Eq. 5) of the REAL graph
+    num_real: int              # global ids < num_real are real
+    num_real_local: int        # rows of this shard that are real
+    valid: torch.Tensor        # (v_local,) bool
+    offset: int                # global id of the shard's row 0
+    score: tuple               # the score backend's arrays of the shard
+    plan_args: tuple           # the exchange plan's tensors for this rank
+
+
+def make_rank_sum(comm) -> Callable:
+    """``reduce_(tensors) -> tensors``: each tensor summed over the ranks
+    (the reference's ``psum``), in one all-gather of the packed float32
+    parts (int32 parts bit-cast) and a sum in rank order.  The integer-
+    valued parts are exact in any order; score(G) is a float32 sum, and a
+    fixed order keeps it the same on every rank."""
+    from .comm import gather_shards
+
+    def reduce_(parts):
+        flat = [p.reshape(-1) for p in parts]
+        packed = torch.cat([f if f.dtype == torch.float32
+                            else f.view(torch.float32) for f in flat])
+        rows = gather_shards(packed[None], comm)
+        out, pos = [], 0
+        for part, f in zip(parts, flat):
+            cols = rows[:, pos:pos + f.numel()]
+            pos += f.numel()
+            if f.dtype != torch.float32:
+                cols = cols.contiguous().view(f.dtype)
+            acc = cols[0]
+            for r in range(1, comm.ndev):
+                acc = acc + cols[r]
+            out.append(acc.reshape(part.shape))
+        return out
+
+    return reduce_
+
+
+def make_sharded_step_fn(cfg, comm, v_local: int, plan, scores,
+                         noise_mode: str, overlap: bool = False,
+                         fused: bool = False) -> Callable:
+    """``step(state, aux, bind) -> (state, aux)``: one iteration on this
+    rank's shard.
+
+    ``state.labels`` is the rank's ``(v_local,)`` label shard; ``aux`` the
+    exchange plan's carried state.  Without overlap the step is exchange
+    -> score; with it, ``scores`` is the backend's ``(interior_fn,
+    frontier_fn)`` pair over the ``[interior | frontier]`` segments and the
+    step is ``start_exchange -> interior_fn -> finish_exchange ->
+    frontier_fn``, the interior scored while the collective is in flight.
+    Fused (``fused=True``): ``scores`` returns the iteration's outputs
+    (under overlap, its frontier half seeds K1 with the interior partial).
+
+    Draws: ``"replicated"`` takes the shard's rows of the whole padded
+    draw (counters offset by the shard's first row), so at one device the
+    streams are the single-device engine's; ``"folded"`` folds the rank
+    into the iteration key and draws the shard alone.
+    """
+    k, tie = cfg.k, cfg.tie_noise
+    eps = float(np.float32(cfg.eps))
+    update = None if fused else make_vertex_update(cfg)
+    reduce_ = make_rank_sum(comm)
+
+    def draws(k_it, bind: ShardBind, dev):
+        if noise_mode == "folded":
+            k_noise, k_mig = rng.split(rng.fold_in(k_it, comm.rank))
+            return (rng.uniform(k_noise, (v_local, k), 0.0, tie, device=dev),
+                    rng.uniform(k_mig, (v_local,), device=dev))
+        k_noise, k_mig = rng.split(k_it)
+        return (rng.uniform(k_noise, (v_local, k), 0.0, tie, device=dev,
+                            offset=bind.offset * k),
+                rng.uniform(k_mig, (v_local,), device=dev,
+                            offset=bind.offset))
+
+    def step(state: SpinnerState, aux, bind: ShardBind):
+        key, k_it = rng.split(state.key)
+        labels = state.labels
+        if overlap:
+            interior_fn, frontier_fn = scores
+            pending = plan.start_exchange(labels, aux, comm, *bind.plan_args)
+            partial = interior_fn(labels, bind)
+            lookup, aux, xbytes = plan.finish_exchange(pending)
+        else:
+            lookup, aux, xbytes = plan.exchange(labels, aux, comm,
+                                                *bind.plan_args)
+        noise, u = draws(k_it, bind, labels.device)
+        if fused:
+            fn = frontier_fn if overlap else scores
+            head = (partial, lookup) if overlap else (lookup,)
+            out = fn(*head, labels, state.loads, noise, u, bind, reduce_)
+        else:
+            scores_v = (frontier_fn(partial, lookup, labels, bind) if overlap
+                        else scores(lookup, labels, bind))  # (v_local, k)
+            out = update(scores_v, labels, bind.deg_w, state.loads, noise, u,
+                         bind.valid, bind.capacity, reduce_)
+        return _advance(state, key, *out, eps, cfg.halt_window,
+                        cfg.max_iters, xbytes), aux
+
+    return step
+
+
+def _default_partition_mesh(device=None):
+    """1-D mesh over the whole process group (a one-rank group on an
+    in-process store when there is none), cached per device type."""
+    from ..launch.mesh import make_partition_mesh
+    dev_type = resolve_device(device).type
+    mesh = _DEFAULT_MESH.get(dev_type)
+    if mesh is None:
+        mesh = _DEFAULT_MESH[dev_type] = make_partition_mesh(device=device)
+    return mesh
+
+
+_DEFAULT_MESH: dict = {}
+
+
+def _sharded_closures(backend, cfg, v_local: int, overlap: bool,
+                      fused: bool):
+    """The backend's sharded closure (or split pair) and the function that
+    reads its arrays off a ``RankShard``."""
+    k = cfg.k
+    kw = dict(degree_weighted=cfg.migration_weighting == "edges",
+              current_bonus=float(cfg.current_bonus))
+    if fused and overlap:
+        return (backend.make_sharded_fused_update_split(k, v_local, **kw),
+                backend.sharded_fused_graph_args_split)
+    if fused:
+        return (backend.make_sharded_fused_update(k, v_local, **kw),
+                backend.sharded_fused_graph_args)
+    if overlap:
+        return (backend.make_sharded_scores_split(k, v_local),
+                backend.sharded_graph_args_split)
+    return (backend.make_sharded_scores(k, v_local),
+            backend.sharded_graph_args)
+
+
+def _sharded_parts(graph: Graph, cfg, opts: EngineOptions, mesh,
+                   axis: str = "data", single_step: bool = False):
+    """Everything a sharded run on this rank needs: ``(layout, plan, step,
+    bind, comm)``.
+
+    Resolves the exchange plan and the schedule, builds (or fetches from
+    the padded graph's cache) the rank's segments in the plan's dst index
+    and the backend's arrays.  The halo plans read the numpy
+    ``ShardedGraph``; allgather and delta read only its sizes.
+    ``single_step=True`` (the host-loop step) pins the aux-free allgather
+    plan and no overlap, as the reference's does.
+    """
+    from ..launch.mesh import mesh_device, mesh_group, mesh_rank, mesh_size
+    from . import comm as comm_mod
+    from .distributed import rank_shard, shard_geometry, shard_layout
+    if single_step:
+        opts = dataclasses.replace(opts, label_exchange="allgather",
+                                   overlap="off")
+    ndev = mesh_size(mesh, axis)
+    comm = comm_mod.Comm(group=mesh_group(mesh, axis),
+                         rank=mesh_rank(mesh, axis), ndev=ndev)
+    device = mesh_device(mesh)
+    want = opts.resolved_device()
+    if want.type != device.type:
+        raise ValueError(f"the mesh is on {device.type}, but the options ask "
+                         f"for {want}")
+    padded, num_real = padded_view(graph, opts)
+    pad = opts.pad == "bucket"
+    name = opts.resolved_label_exchange(ndev)
+    overlap = opts.resolved_overlap(ndev) == "on"
+    fused = opts.resolved_fused_update() == "on"
+    noise_mode = opts.resolved_sharded_noise()
+    halo = name in ("halo", "halo_delta")
+    sg = (shard_layout(padded, ndev, pad=pad) if halo
+          else shard_geometry(padded, ndev))
+    plan = comm_mod.make_exchange_plan(name, sg, delta_cap=opts.delta_cap,
+                                       pad=pad)
+    if halo:
+        shard = rank_shard(padded, ndev, comm.rank, device,
+                           frontier_dst=plan.frontier_dst[comm.rank],
+                           layout=("halo", pad, plan.halo_size))
+    else:
+        shard = rank_shard(padded, ndev, comm.rank, device)
+    vl = shard.v_local
+    backend = opts.backend()
+    scores, args_of = _sharded_closures(backend, cfg, vl, overlap, fused)
+    bind = ShardBind(
+        deg_w=shard.deg_w,
+        capacity=torch.tensor(cfg.capacity(graph), dtype=torch.float32,
+                              device=device),
+        num_real=num_real,
+        num_real_local=min(max(num_real - shard.offset, 0), vl),
+        valid=shard.offset + torch.arange(vl, device=device) < num_real,
+        offset=shard.offset, score=tuple(args_of(shard)),
+        plan_args=tuple(plan.device_args(comm.rank, device)))
+    step = make_sharded_step_fn(cfg, comm, vl, plan, scores, noise_mode,
+                                overlap=overlap, fused=fused)
+    return sg, plan, step, bind, comm
+
+
+def make_sharded_runner(graph: Graph, cfg, mesh, axis: str = "data",
+                        opts: Optional[EngineOptions] = None,
+                        single_step: bool = False) -> Callable:
+    """``runner(state) -> state`` on this rank: run to the stable state
+    (with ``single_step``, one iteration), syncing with the host once per
+    chunk.
+
+    ``state.labels`` is the padded ``(ndev * v_per_dev,)`` vector of the
+    sharded layout, the same on every rank, on the mesh's device; the
+    result's labels are that vector again (all-gathered), so every rank
+    returns the same state.  No kernel is launched after the halt, and
+    every rank cuts its chunks at the same iterations: the halting state
+    is replicated by construction.
+    """
+    from .comm import gather_shards
+    opts = opts if opts is not None else EngineOptions()
+    sg, plan, step, bind, comm = _sharded_parts(graph, cfg, opts, mesh, axis,
+                                                single_step)
+    vl, off = sg.v_per_dev, bind.offset
+    chunk = opts.chunk_size or DEFAULT_CHUNK
+
+    def runner(state: SpinnerState) -> SpinnerState:
+        if state.labels.shape[0] != sg.num_vertices:
+            raise ValueError(f"state.labels has {state.labels.shape[0]} "
+                             f"entries, the sharded layout {sg.num_vertices}")
+        local = state._replace(labels=state.labels[off:off + vl].contiguous())
+        aux = [plan.init_aux(local.labels, comm, *bind.plan_args)]
+
+        def advance(s: SpinnerState) -> SpinnerState:
+            s, aux[0] = step(s, aux[0], bind)
+            return s
+
+        if single_step:
+            out = advance(local)
+        else:
+            out = _chunk_loop(cfg, local, advance, chunk)[0]
+        return out._replace(labels=gather_shards(out.labels, comm))
+
+    runner.v_pad = sg.num_vertices
+    return runner
+
+
+def sharded_v_pad(graph: Graph, opts: EngineOptions, mesh,
+                  axis: str = "data") -> int:
+    """Padded vertex count of the sharded layout (bucket + mesh rounding)."""
+    from ..launch.mesh import mesh_size
+    padded, _ = padded_view(graph, opts)
+    ndev = mesh_size(mesh, axis)
+    return -(-padded.num_vertices // ndev) * ndev
+
+
+def run_sharded(graph: Graph, cfg, labels, loads, key: rng.Key,
+                mesh=None, axis: str = "data",
+                opts: Optional[EngineOptions] = None) -> SpinnerState:
+    """Run to the stable state over ``mesh`` (``None``: the default mesh
+    over the process group).  The returned state carries the PADDED labels
+    of the sharded layout; callers slice ``[:graph.num_vertices]``."""
+    from ..launch.mesh import mesh_device
+    opts = opts if opts is not None else EngineOptions()
+    if mesh is None:
+        mesh = _default_partition_mesh(opts.device)
+    runner = make_sharded_runner(graph, cfg, mesh, axis, opts)
+    dev = mesh_device(mesh)
+    labels = torch.as_tensor(labels, dtype=torch.int32).to(dev)
+    state = init_state(pad_labels(labels, runner.v_pad),
+                       torch.as_tensor(loads).to(dev), key)
+    return runner(state)

@@ -66,6 +66,16 @@ def comm_volume(graph: Graph, labels: np.ndarray, k: int) -> np.ndarray:
     return np.bincount(labels[graph.src[cut]], minlength=k).astype(np.int64)
 
 
+def frontier_fraction(sg) -> float:
+    """Fraction of a ``ShardedGraph``'s real edges in the frontier
+    segment: the share of each step's scoring that must wait for the label
+    exchange under the overlap schedule (``EngineOptions.overlap``)."""
+    interior = int(np.sum(sg.interior_counts))
+    frontier = int(np.sum(sg.frontier_counts))
+    total = interior + frontier
+    return float(frontier / total) if total else 0.0
+
+
 def summarize(graph: Graph, labels: np.ndarray, k: int,
               c: float = 1.05) -> dict:
     """Quality summary of one assignment."""

@@ -19,9 +19,18 @@ service amortizes::
 Lifecycle: ``open -> partition / adapt / resize / update / stage ->
 close``.  The session owns the (graph, config, options) triple, the
 previous stable labels (``adapt``/``resize`` default to them) and, once an
-``edge_updates`` batch arrives, the on-device delta (``core.delta``).  It
-runs at one device; a mesh or ``engine="sharded"`` raises (the sharded
-engine is not ported yet).
+``edge_updates`` batch arrives, the on-device delta (``core.delta``).
+
+On a mesh (``EngineOptions(mesh=...)`` or ``engine="sharded"``) every
+process of the mesh opens the same session and makes the same calls:
+``partition``, ``adapt(new_graph)``, ``resize`` and ``update`` run the
+sharded engine, and ``stats()`` adds the exchange plan's volumes under
+``"exchange"``.  There ``adapt(edge_updates=)`` takes the fallback rebuild
+on the CUDA backend (its shards are rebuilt from the host graph, as the
+reference's Pallas backend retiles on the host); on the torch backend,
+where the reference merges the delta into its sharded arrays, it raises
+``NotImplementedError`` (not ported yet), as do ``adapt(frontier=True)``
+and ``run_app``.
 
 Compile accounting has no counterpart here: PyTorch runs eagerly and the
 kernels are built once per source hash, so nothing compiles per graph.
@@ -70,7 +79,9 @@ from .graph import Graph, add_edges
 from .incremental import elastic_relabel, extend_labels
 from .spinner import PartitionResult, SpinnerConfig, prepare_init
 
-_ENGINES = ("auto", "fused", "chunked", "host")
+_ENGINES = ("auto", "fused", "sharded", "chunked", "host")
+_MESH_TODO = ("is not ported to the sharded engine yet (ROADMAP.md "
+              "Slice D)")
 
 # The one closed-session error, shared by every entry point: a serving tier
 # retires sessions aggressively and matches on this message, so it must not
@@ -105,13 +116,16 @@ class PartitionSession:
     def __init__(self, graph: Graph, cfg: SpinnerConfig,
                  options: Optional[EngineOptions] = None):
         opts = options if options is not None else EngineOptions()
-        if opts.engine == "sharded":
-            raise NotImplementedError(
-                "engine='sharded' is not ported to PyTorch yet (ROADMAP.md "
-                "Slice D)")
-        dev = opts.resolved_device()
-        if dev.type == "cuda" and dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
+        self._mesh = None
+        if opts.mesh is not None or opts.engine == "sharded":
+            from ..launch.mesh import mesh_device
+            self._mesh = (opts.mesh if opts.mesh is not None
+                          else _engine._default_partition_mesh(opts.device))
+            dev = mesh_device(self._mesh)
+        else:
+            dev = opts.resolved_device()
+            if dev.type == "cuda" and dev.index is None:
+                dev = torch.device("cuda", torch.cuda.current_device())
         self._device = dev
         self._pending: List[tuple] = []   # validated directed delta batches
         self._dirty: Optional[np.ndarray] = None  # endpoints since last run
@@ -175,7 +189,14 @@ class PartitionSession:
         """Count the O(E) upload a run on ``graph`` is about to cause: the
         padded CSR goes to the device once per graph object."""
         padded, _ = _engine.padded_view(graph, self.options)
-        if not padded.on_device(self._device):
+        if self._mesh is not None:
+            from ..launch.mesh import mesh_rank, mesh_size
+            from .distributed import has_rank_shard
+            axis = self.options.axis
+            if not has_rank_shard(padded, mesh_size(self._mesh, axis),
+                                  mesh_rank(self._mesh, axis), self._device):
+                self._uploads += 1
+        elif not padded.on_device(self._device):
             self._uploads += 1
 
     # -- lifecycle ---------------------------------------------------------
@@ -241,6 +262,8 @@ class PartitionSession:
         self._check_open()
         if new_graph is not None and edge_updates is not None:
             raise ValueError("pass at most one of new_graph/edge_updates")
+        if frontier and self._mesh is not None:
+            raise NotImplementedError("adapt(frontier=True) " + _MESH_TODO)
         batch = None
         if edge_updates is not None:
             e_src, e_dst = edge_updates
@@ -338,6 +361,10 @@ class PartitionSession:
         ``graph`` (both are cached per graph object, which the later
         ``adapt()`` receives)."""
         self._note_upload(graph)
+        if self._mesh is not None:
+            _engine._sharded_parts(graph, self.cfg, self.options, self._mesh,
+                                   self.options.axis)
+            return
         padded, _ = _engine.padded_view(graph, self.options)
         padded.to_device(self._device)
 
@@ -400,6 +427,18 @@ class PartitionSession:
             return False                # no slack to fill
         if callback is not None or record_history is True:
             return False                # per-iteration visibility paths
+        if self._mesh is not None:
+            from ..launch.mesh import mesh_size
+            ndev = mesh_size(self._mesh, opts.axis)
+            if getattr(opts.backend(), "name", None) != "torch":
+                return False            # the CUDA shards rebuild on the host
+            if opts.resolved_overlap(ndev) == "on":
+                return False            # overlap's split arrays differ
+            if opts.resolved_label_exchange(ndev) == "halo":
+                return False            # halo dst slots aren't global ids
+            raise NotImplementedError(
+                "the delta merge into the sharded arrays (the reference's "
+                "init_sharded_xla) " + _MESH_TODO)
         if opts.engine not in ("auto", "fused"):
             return False                # chunked/host replay per-iteration
         if opts.engine == "auto" and record_history is not False:
@@ -529,6 +568,7 @@ class PartitionSession:
             loads=state.loads.cpu().numpy(), iterations=iters,
             halted=bool(state.halted), history=[],
             total_messages=float(state.total_messages), engine=eng,
+            exchanged_bytes=float(state.exchanged_bytes),
             scored_vertices=scored, scored_per_iter=per_iter)
         self._last = res
         self._prev = res.labels
@@ -572,6 +612,9 @@ class PartitionSession:
         to ``run_app`` (``combine``, ``iters``, ``source``, ...).
         """
         self._check_open()
+        if self._mesh is not None:
+            raise NotImplementedError("run_app on a mesh (the applications' "
+                                      "multi-device options) " + _MESH_TODO)
         from ..apps import run_app as _run_app   # lazy: apps imports core
         if labels is None:
             labels = self._prev
@@ -642,6 +685,12 @@ class PartitionSession:
                          "exchanged_bytes": self._last.exchanged_bytes,
                          "scored_vertices": self._last.scored_vertices,
                          "scored_per_iter": self._last.scored_per_iter}
+        if self._mesh is not None:
+            from ..launch.mesh import mesh_size
+            from .distributed import comm_stats, shard_layout
+            sg = shard_layout(padded, mesh_size(self._mesh, opts.axis),
+                              pad=opts.pad == "bucket")
+            d["exchange"] = comm_stats(sg, self.cfg, opts)
         return d
 
     # -- internals ---------------------------------------------------------
@@ -661,20 +710,28 @@ class PartitionSession:
         cfg = self.cfg if cfg is None else cfg
         eng = opts.engine
         if eng == "auto":
-            eng = ("fused" if record_history is False and callback is None
-                   else "chunked")
+            if self._mesh is not None:
+                eng = "sharded"   # an explicit mesh implies the sharded runner
+            else:
+                eng = ("fused" if record_history is False and callback is None
+                       else "chunked")
+        if self._mesh is not None and eng != "sharded":
+            raise ValueError(f"mesh= is only meaningful for engine='sharded', "
+                             f"got {eng!r}")
         if eng not in _ENGINES:
             raise ValueError(f"unknown engine {eng!r}; "
                              f"available: {', '.join(_ENGINES)}")
-        if eng == "fused":
+        if eng in ("fused", "sharded"):
+            remedy = ("per-iteration history/callbacks are not available "
+                      "on a device mesh; run engine='chunked' without "
+                      "mesh= for traces" if eng == "sharded"
+                      else "use engine='chunked' (or 'auto') instead")
             if callback is not None:
-                raise ValueError("engine='fused' cannot invoke a "
-                                 "per-iteration callback; use "
-                                 "engine='chunked' (or 'auto') instead")
+                raise ValueError(f"engine={eng!r} cannot invoke a "
+                                 f"per-iteration callback; {remedy}")
             if record_history is True:
-                raise ValueError("engine='fused' cannot record "
-                                 "per-iteration history; use "
-                                 "engine='chunked' (or 'auto') instead")
+                raise ValueError(f"engine={eng!r} cannot record "
+                                 f"per-iteration history; {remedy}")
 
         labels, loads, key = prepare_init(graph, cfg, init,
                                           device=self._device)
@@ -683,7 +740,12 @@ class PartitionSession:
             res = self._run_host(cfg, labels, loads, key,
                                  record_history is not False, callback)
         else:
-            if eng == "fused":
+            if eng == "sharded":
+                state = _engine.run_sharded(graph, cfg, labels, loads, key,
+                                            mesh=self._mesh, axis=opts.axis,
+                                            opts=opts)
+                history = []
+            elif eng == "fused":
                 state = _engine.run_fused(graph, cfg, labels, loads, key,
                                           opts)
                 history = []
@@ -695,12 +757,14 @@ class PartitionSession:
                     callback=callback, record=record)
                 if not record:
                     history = []     # a callback forces recording
+            # sharded labels come back padded to the sharded layout
             res = PartitionResult(
-                labels=state.labels.cpu().numpy(),
+                labels=state.labels[:graph.num_vertices].cpu().numpy(),
                 loads=state.loads.cpu().numpy(),
                 iterations=int(state.iteration),
                 halted=bool(state.halted), history=history,
-                total_messages=float(state.total_messages), engine=eng)
+                total_messages=float(state.total_messages), engine=eng,
+                exchanged_bytes=float(state.exchanged_bytes))
         self._last = res
         self._prev = res.labels
         self._runs += 1

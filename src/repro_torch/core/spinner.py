@@ -14,9 +14,11 @@ It opens a throwaway ``PartitionSession`` (``repro_torch.core.session``),
 as the reference does, so one code path serves both; the session picks a
 runner from ``repro_torch.core.engine``: "fused" (no history, one host
 sync per chunk), "chunked" (history recorded on the device), "host" (the
-per-iteration loop, with history through ``metrics``), or "auto"
-("fused" when ``record_history is False`` and there is no callback, else
-"chunked").  Every runner draws the reference's random streams
+per-iteration loop, with history through ``metrics``), "sharded" (the
+fused loop SPMD over a ``torch.distributed`` mesh, one process per
+device; a 1-device mesh reproduces "fused" exactly), or "auto" ("sharded"
+with a mesh, else "fused" when ``record_history is False`` and there is no
+callback, else "chunked").  Every runner draws the reference's random streams
 (``repro_torch.rng``), so for one seed and one padded layout the labels,
 loads and iteration count equal the reference package's.
 """
@@ -122,6 +124,8 @@ def partition(graph: Graph,
               callback: Optional[Callable[[int, dict], None]] = None,
               engine: str = "auto",
               chunk_size: Optional[int] = None,
+              mesh=None,
+              axis: str = "data",
               options: Optional[EngineOptions] = None,
               device=None,
               ) -> PartitionResult:
@@ -130,7 +134,10 @@ def partition(graph: Graph,
     A thin wrapper that opens a throwaway ``PartitionSession`` with the
     resolved options and runs it once, so results equal the same call
     through a live session.  ``engine`` / ``chunk_size`` / ``device``
-    override the same fields of ``options``.  The run is on the CUDA card
+    override the same fields of ``options``, and so do ``mesh`` / ``axis``:
+    ``engine="sharded"`` runs over ``mesh`` (``None``: the default mesh,
+    ``repro_torch.launch.mesh.make_partition_mesh``), and every process of
+    the mesh makes the same call.  The run is on the CUDA card
     unless the device is ``"cpu"``; with no card it raises instead of
     falling back.  ``record_history=None`` records where the runner can
     (host, chunked); asking the fused runner for history or a callback is
@@ -142,6 +149,10 @@ def partition(graph: Graph,
         over["engine"] = engine
     if chunk_size is not None:
         over["chunk_size"] = chunk_size
+    if mesh is not None:
+        over["mesh"] = mesh
+    if axis != "data":
+        over["axis"] = axis
     if device is not None:
         over["device"] = device
     if over:

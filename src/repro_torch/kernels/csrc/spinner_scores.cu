@@ -9,6 +9,17 @@
 //                                 Eq. 7-8 proposal in the epilogue; only
 //                                 (V,) vectors and the (k,) M(l) partial
 //                                 reach device memory.
+//   fused_update_seeded_csr    <- the same kernel with has_init / acc_init
+//                                 (K1's overlap seed, passed by the sharded
+//                                 engine's overlap schedule): the warp's
+//                                 score row starts from a (V, k) f32
+//                                 interior partial (what spinner_scores_csr
+//                                 wrote over the interior segment) instead
+//                                 of 0, then folds the frontier segment's
+//                                 edges.  The TPU tiles both segments
+//                                 against one shared row permutation so the
+//                                 partial lines up with its accumulator;
+//                                 CSR rows line up by construction.
 //   fused_update_frontier_csr  <- the same kernel with has_act / tile_act
 //                                 (K1's frontier variant): rows outside the
 //                                 (V,) real & active mask skip their edges
@@ -24,7 +35,10 @@
 // Hopper has fast shared-memory atomics, so these kernels read the CSR as
 // it is: one warp per vertex row, lanes striding over the row's edges with
 // coalesced dst/w loads, one gathered label per edge, and an atomicAdd into
-// a k-float slice of shared memory owned by the warp.  Both K1 forms also
+// a k-float slice of shared memory owned by the warp.  Every form reads a
+// neighbour's label from `lookup` and a row's own label from `labels`: one
+// array at one device, two on a shard (the rank's label shard, and the
+// exchange plan's lookup that dst indexes).  K1's forms also
 // fold a second, optional CSR segment (d_row_ptr / d_dst / d_w, null when
 // absent): the session's on-device delta of appended entries, parallel
 // edges carrying weight changes.
@@ -32,9 +46,11 @@
 // Bound on this card: bytes.  Per call the kernels must read row_ptr
 // (8 B/vertex), dst and w (8 B/edge), the labels, and -- for the fused one
 // -- the (V, k) f32 tie noise, and write (V, k) f32 scores or three (V,)
-// vectors.  The frontier variant must read the (V,) mask, labels and three
-// outputs for every row but row_ptr, edges, degree and noise only for the
-// active rows.  The label gather (labels[dst[e]], 4 B per edge from a
+// vectors; the seeded form reads the (V, k) f32 partial too, so on a shard
+// the interior K2 pass plus the seeded K1 pass move the partial twice more
+// than one K1 pass over the whole shard would.  The frontier variant must
+// read the (V,) mask, labels and three outputs for every row but row_ptr,
+// edges, degree and noise only for the active rows.  The label gather (lookup[dst[e]], 4 B per edge from a
 // random row) is the access that cannot coalesce; at the main path's 4 M
 // vertices the label vector (16.8 MB) fits in the 50 MB L2.  The design
 // keeps the score row in shared memory so the fused kernel never writes
@@ -66,18 +82,18 @@ using csr::kWarp;
 // Weight-0 entries (bucket padding) are skipped: they add nothing.
 __device__ __forceinline__ void accumulate_row(
     const long long* __restrict__ row_ptr, const int* __restrict__ dst,
-    const float* __restrict__ w, const int* __restrict__ labels, float* acc,
+    const float* __restrict__ w, const int* __restrict__ lookup, float* acc,
     int v, int lane) {
   const long long end = row_ptr[v + 1];
   for (long long e = row_ptr[v] + lane; e < end; e += kWarp) {
     const float we = w[e];
-    if (we != 0.0f) atomicAdd(&acc[labels[dst[e]]], we);
+    if (we != 0.0f) atomicAdd(&acc[lookup[dst[e]]], we);
   }
 }
 
 __global__ void spinner_scores_kernel(
     const long long* __restrict__ row_ptr, const int* __restrict__ dst,
-    const float* __restrict__ w, const int* __restrict__ labels,
+    const float* __restrict__ w, const int* __restrict__ lookup,
     float* __restrict__ out, int num_vertices, int k) {
   extern __shared__ float smem[];
   const int lane = threadIdx.x % kWarp;
@@ -88,7 +104,7 @@ __global__ void spinner_scores_kernel(
        v += gridDim.x * warps) {
     for (int l = lane; l < k; l += kWarp) acc[l] = 0.0f;
     __syncwarp();
-    accumulate_row(row_ptr, dst, w, labels, acc, v, lane);
+    accumulate_row(row_ptr, dst, w, lookup, acc, v, lane);
     __syncwarp();
     float* row = out + static_cast<size_t>(v) * k;
     for (int l = lane; l < k; l += kWarp) row[l] = acc[l];
@@ -102,13 +118,17 @@ __device__ __forceinline__ float eq8_total(float s, float denom, float pen) {
 
 // kFrontier: `active` is the (V,) real & active mask (1 byte a row); rows
 // outside it write the no-op proposal.  Otherwise rows >= num_real are
-// padding, left out of M(l).
-template <bool kFrontier>
+// padding, left out of M(l) (on a shard the caller passes the shard's real
+// row count, the global count less the shard's offset, clamped to [0, V]).
+// kSeeded: `acc_init` is the (V, k) partial the score row starts from
+// (a template flag, so the other forms carry no seed branch or register).
+template <bool kFrontier, bool kSeeded>
 __global__ void fused_update_kernel(
     const long long* __restrict__ row_ptr, const int* __restrict__ dst,
     const float* __restrict__ w, const long long* __restrict__ d_row_ptr,
     const int* __restrict__ d_dst, const float* __restrict__ d_w,
-    const int* __restrict__ labels, const float* __restrict__ deg_w,
+    const int* __restrict__ labels, const int* __restrict__ lookup,
+    const float* __restrict__ acc_init, const float* __restrict__ deg_w,
     const float* __restrict__ pen, const float* __restrict__ noise,
     const unsigned char* __restrict__ active, int* __restrict__ best_out,
     float* __restrict__ tot_best_out, float* __restrict__ tot_cur_out,
@@ -135,11 +155,16 @@ __global__ void fused_update_kernel(
       }
       continue;
     }
-    for (int l = lane; l < k; l += kWarp) acc[l] = 0.0f;
+    if (kSeeded) {
+      const float* seed = acc_init + static_cast<size_t>(v) * k;
+      for (int l = lane; l < k; l += kWarp) acc[l] = seed[l];
+    } else {
+      for (int l = lane; l < k; l += kWarp) acc[l] = 0.0f;
+    }
     __syncwarp();
-    accumulate_row(row_ptr, dst, w, labels, acc, v, lane);
+    accumulate_row(row_ptr, dst, w, lookup, acc, v, lane);
     if (d_row_ptr != nullptr)
-      accumulate_row(d_row_ptr, d_dst, d_w, labels, acc, v, lane);
+      accumulate_row(d_row_ptr, d_dst, d_w, lookup, acc, v, lane);
     __syncwarp();
 
     // Eq. 7-8: each lane scans its columns in increasing order, keeping
@@ -184,24 +209,27 @@ __global__ void fused_update_kernel(
     if (m_block[l] != 0.0f) atomicAdd(&m_out[l], m_block[l]);
 }
 
-template <bool kFrontier>
+template <bool kFrontier, bool kSeeded>
 int launch_fused(const void* row_ptr, const void* dst, const void* w,
                  const void* d_row_ptr, const void* d_dst, const void* d_w,
-                 const void* labels, const void* deg_w, const void* pen,
+                 const void* labels, const void* lookup,
+                 const void* acc_init, const void* deg_w, const void* pen,
                  const void* noise, const void* active, void* best,
                  void* tot_best, void* tot_cur, void* m, int num_vertices,
                  int num_real, int k, float bonus, int degree_weighted,
                  int warps, void* stream) {
   const int threads = warps * kWarp;
   const size_t smem = static_cast<size_t>(warps + 1) * k * sizeof(float);
-  const int grid = csr::grid_for(fused_update_kernel<kFrontier>,
+  const int grid = csr::grid_for(fused_update_kernel<kFrontier, kSeeded>,
                                  num_vertices, threads, smem, warps);
-  fused_update_kernel<kFrontier><<<grid, threads, smem,
-                                   static_cast<cudaStream_t>(stream)>>>(
+  fused_update_kernel<kFrontier, kSeeded><<<grid, threads, smem,
+                                            static_cast<cudaStream_t>(
+                                                stream)>>>(
       static_cast<const long long*>(row_ptr), static_cast<const int*>(dst),
       static_cast<const float*>(w), static_cast<const long long*>(d_row_ptr),
       static_cast<const int*>(d_dst), static_cast<const float*>(d_w),
-      static_cast<const int*>(labels), static_cast<const float*>(deg_w),
+      static_cast<const int*>(labels), static_cast<const int*>(lookup),
+      static_cast<const float*>(acc_init), static_cast<const float*>(deg_w),
       static_cast<const float*>(pen), static_cast<const float*>(noise),
       static_cast<const unsigned char*>(active), static_cast<int*>(best),
       static_cast<float*>(tot_best), static_cast<float*>(tot_cur),
@@ -213,7 +241,7 @@ int launch_fused(const void* row_ptr, const void* dst, const void* w,
 }  // namespace
 
 extern "C" int spinner_scores_csr(const void* row_ptr, const void* dst,
-                                  const void* w, const void* labels,
+                                  const void* w, const void* lookup,
                                   void* out, int num_vertices, int k,
                                   int warps, void* stream) {
   const int threads = warps * kWarp;
@@ -223,7 +251,7 @@ extern "C" int spinner_scores_csr(const void* row_ptr, const void* dst,
   spinner_scores_kernel<<<grid, threads, smem,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const long long*>(row_ptr), static_cast<const int*>(dst),
-      static_cast<const float*>(w), static_cast<const int*>(labels),
+      static_cast<const float*>(w), static_cast<const int*>(lookup),
       static_cast<float*>(out), num_vertices, k);
   return static_cast<int>(cudaGetLastError());
 }
@@ -231,27 +259,40 @@ extern "C" int spinner_scores_csr(const void* row_ptr, const void* dst,
 extern "C" int fused_update_csr(const void* row_ptr, const void* dst,
                                 const void* w, const void* d_row_ptr,
                                 const void* d_dst, const void* d_w,
-                                const void* labels, const void* deg_w,
-                                const void* pen, const void* noise,
-                                void* best, void* tot_best, void* tot_cur,
-                                void* m, int num_vertices, int num_real,
-                                int k, float bonus, int degree_weighted,
-                                int warps, void* stream) {
-  return launch_fused<false>(row_ptr, dst, w, d_row_ptr, d_dst, d_w, labels,
-                             deg_w, pen, noise, nullptr, best, tot_best,
-                             tot_cur, m, num_vertices, num_real, k, bonus,
-                             degree_weighted, warps, stream);
+                                const void* labels, const void* lookup,
+                                const void* deg_w, const void* pen,
+                                const void* noise, void* best,
+                                void* tot_best, void* tot_cur, void* m,
+                                int num_vertices, int num_real, int k,
+                                float bonus, int degree_weighted, int warps,
+                                void* stream) {
+  return launch_fused<false, false>(
+      row_ptr, dst, w, d_row_ptr, d_dst, d_w, labels, lookup, nullptr,
+      deg_w, pen, noise, nullptr, best, tot_best, tot_cur, m, num_vertices,
+      num_real, k, bonus, degree_weighted, warps, stream);
+}
+
+extern "C" int fused_update_seeded_csr(
+    const void* row_ptr, const void* dst, const void* w, const void* labels,
+    const void* lookup, const void* acc_init, const void* deg_w,
+    const void* pen, const void* noise, void* best, void* tot_best,
+    void* tot_cur, void* m, int num_vertices, int num_real, int k,
+    float bonus, int degree_weighted, int warps, void* stream) {
+  return launch_fused<false, true>(
+      row_ptr, dst, w, nullptr, nullptr, nullptr, labels, lookup, acc_init,
+      deg_w, pen, noise, nullptr, best, tot_best, tot_cur, m, num_vertices,
+      num_real, k, bonus, degree_weighted, warps, stream);
 }
 
 extern "C" int fused_update_frontier_csr(
     const void* row_ptr, const void* dst, const void* w,
     const void* d_row_ptr, const void* d_dst, const void* d_w,
-    const void* labels, const void* deg_w, const void* pen,
-    const void* noise, const void* active, void* best, void* tot_best,
-    void* tot_cur, void* m, int num_vertices, int k, float bonus,
-    int degree_weighted, int warps, void* stream) {
-  return launch_fused<true>(row_ptr, dst, w, d_row_ptr, d_dst, d_w, labels,
-                            deg_w, pen, noise, active, best, tot_best,
-                            tot_cur, m, num_vertices, num_vertices, k, bonus,
-                            degree_weighted, warps, stream);
+    const void* labels, const void* lookup, const void* deg_w,
+    const void* pen, const void* noise, const void* active, void* best,
+    void* tot_best, void* tot_cur, void* m, int num_vertices, int k,
+    float bonus, int degree_weighted, int warps, void* stream) {
+  return launch_fused<true, false>(
+      row_ptr, dst, w, d_row_ptr, d_dst, d_w, labels, lookup, nullptr,
+      deg_w, pen, noise, active, best, tot_best, tot_cur, m, num_vertices,
+      num_vertices, k, bonus, degree_weighted, warps, stream);
 }

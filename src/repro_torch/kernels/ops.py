@@ -12,6 +12,15 @@ frontier's ``real & active`` mask).  A session's on-device delta
 (``delta_args``): both backends' fused forms read it, and so does the
 scatter backend's split form.
 
+The sharded engine calls each backend's sharded forms on one rank's shard
+(``core.distributed.RankShard``, read by ``sharded_graph_args`` and
+friends): ``make_sharded_scores`` / ``make_sharded_fused_update`` score
+the whole shard against the exchange plan's lookup, and the ``_split``
+pairs score the interior segment against the label shard (while the
+exchange is in flight) and then fold the frontier segment into that
+partial.  The closures take ``(..., bind, reduce_)`` where ``bind`` is the
+engine's ``ShardBind`` and ``reduce_`` sums the aggregates over the ranks.
+
   * ``"torch"`` -- scatter-add (``index_put_`` with accumulate) composed
     with the engine's reference halves: the oracle, the counterpart of the
     reference's XLA scatter backend.
@@ -19,7 +28,9 @@ scatter backend's split form.
     counterpart of the reference's Pallas backend.  Its fused entry runs
     the score reduction and the Eq. 7-8 proposal in one kernel and is on
     by default (``fused_auto``); with ``frontier=True`` it launches the
-    kernel's frontier variant.  Its split form (the dense score kernel)
+    kernel's frontier variant, and under the sharded overlap schedule the
+    score kernel writes the interior partial and the fused kernel's seeded
+    form folds the frontier into it.  Its split form (the dense score kernel)
     reads no delta segment.  On CPU tensors its wrappers run the plain
     versions.
 
@@ -33,7 +44,7 @@ from typing import Callable, Union
 
 from . import ref
 from .spinner_scores import (fused_update, fused_update_frontier,
-                             spinner_scores)
+                             fused_update_seeded, spinner_scores)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +87,71 @@ class TorchScatterBackend:
 
     def fused_graph_args(self, csr) -> tuple:
         return self.graph_args(csr)
+
+    # ---- the sharded forms (one rank's shard) ----------------------------
+
+    def make_sharded_scores(self, k: int, v_local: int) -> Callable:
+        def scores(lookup, labels, bind):
+            src, dst, w = bind.score
+            return ref.spinner_scores_ref(lookup, src, dst, w, v_local, k)
+        return scores
+
+    def sharded_graph_args(self, shard) -> tuple:
+        return shard.whole[1:]
+
+    def make_sharded_scores_split(self, k: int, v_local: int) -> tuple:
+        def interior(labels_local, bind):
+            src, dst, w = bind.score[:3]
+            return ref.spinner_scores_ref(labels_local, src, dst, w, v_local,
+                                          k)
+
+        def frontier(partial, lookup, labels, bind):
+            src, dst, w = bind.score[3:]
+            return ref.spinner_scores_ref(lookup, src, dst, w, v_local, k,
+                                          init=partial)
+        return interior, frontier
+
+    def sharded_graph_args_split(self, shard) -> tuple:
+        return shard.interior[1:] + shard.frontier[1:]
+
+    def make_sharded_fused_update(self, k: int, v_local: int, *,
+                                  degree_weighted: bool,
+                                  current_bonus: float) -> Callable:
+        from ..core.engine import make_update_parts   # lazy: no cycle
+        propose, finish = make_update_parts(
+            k, degree_weighted=degree_weighted, current_bonus=current_bonus)
+        scores_fn = self.make_sharded_scores(k, v_local)
+
+        def fused(lookup, labels, loads, noise, u, bind, reduce_):
+            scores = scores_fn(lookup, labels, bind)
+            parts = propose(scores, labels, bind.deg_w, loads, noise,
+                            bind.valid, bind.capacity)
+            return finish(*parts, labels, bind.deg_w, loads, u, bind.valid,
+                          bind.capacity, reduce_)
+        return fused
+
+    def sharded_fused_graph_args(self, shard) -> tuple:
+        return self.sharded_graph_args(shard)
+
+    def make_sharded_fused_update_split(self, k: int, v_local: int, *,
+                                        degree_weighted: bool,
+                                        current_bonus: float) -> tuple:
+        from ..core.engine import make_update_parts   # lazy: no cycle
+        propose, finish = make_update_parts(
+            k, degree_weighted=degree_weighted, current_bonus=current_bonus)
+        interior, fold = self.make_sharded_scores_split(k, v_local)
+
+        def frontier(partial, lookup, labels, loads, noise, u, bind,
+                     reduce_):
+            scores = fold(partial, lookup, labels, bind)
+            parts = propose(scores, labels, bind.deg_w, loads, noise,
+                            bind.valid, bind.capacity)
+            return finish(*parts, labels, bind.deg_w, loads, u, bind.valid,
+                          bind.capacity, reduce_)
+        return interior, frontier
+
+    def sharded_fused_graph_args_split(self, shard) -> tuple:
+        return self.sharded_graph_args_split(shard)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,6 +199,77 @@ class CudaCsrBackend:
 
     def fused_graph_args(self, csr) -> tuple:
         return self.graph_args(csr)
+
+    # ---- the sharded forms (one rank's shard) ----------------------------
+
+    def make_sharded_scores(self, k: int, v_local: int) -> Callable:
+        def scores(lookup, labels, bind):
+            return spinner_scores(labels, *bind.score, k, lookup=lookup)
+        return scores
+
+    def sharded_graph_args(self, shard) -> tuple:
+        row_ptr, _, dst, w = shard.whole
+        return (row_ptr, dst, w)
+
+    def make_sharded_scores_split(self, k: int, v_local: int) -> tuple:
+        """The score kernel twice: over the interior segment against the
+        label shard (the overlap's interior partial), then over the
+        frontier segment against the lookup, added to it."""
+        def interior(labels_local, bind):
+            return spinner_scores(labels_local, *bind.score[:3], k)
+
+        def frontier(partial, lookup, labels, bind):
+            return partial + spinner_scores(labels, *bind.score[3:], k,
+                                            lookup=lookup)
+        return interior, frontier
+
+    def sharded_graph_args_split(self, shard) -> tuple:
+        (rp_i, _, d_i, w_i), (rp_f, _, d_f, w_f) = shard.interior, \
+            shard.frontier
+        return (rp_i, d_i, w_i, rp_f, d_f, w_f)
+
+    def make_sharded_fused_update(self, k: int, v_local: int, *,
+                                  degree_weighted: bool,
+                                  current_bonus: float) -> Callable:
+        from ..core.engine import make_update_parts   # lazy: no cycle
+        _, finish = make_update_parts(
+            k, degree_weighted=degree_weighted, current_bonus=current_bonus)
+
+        def fused(lookup, labels, loads, noise, u, bind, reduce_):
+            parts = fused_update(labels, *bind.score, bind.deg_w,
+                                 loads / bind.capacity, noise,
+                                 bind.num_real_local, k, current_bonus,
+                                 degree_weighted, lookup=lookup)
+            return finish(*parts, labels, bind.deg_w, loads, u, bind.valid,
+                          bind.capacity, reduce_)
+        return fused
+
+    def sharded_fused_graph_args(self, shard) -> tuple:
+        return self.sharded_graph_args(shard)
+
+    def make_sharded_fused_update_split(self, k: int, v_local: int, *,
+                                        degree_weighted: bool,
+                                        current_bonus: float) -> tuple:
+        """The overlap form: the score kernel writes the interior partial
+        while the exchange is in flight, then the fused kernel's seeded
+        form starts each row from it and folds the frontier segment."""
+        from ..core.engine import make_update_parts   # lazy: no cycle
+        _, finish = make_update_parts(
+            k, degree_weighted=degree_weighted, current_bonus=current_bonus)
+        interior, _ = self.make_sharded_scores_split(k, v_local)
+
+        def frontier(partial, lookup, labels, loads, noise, u, bind,
+                     reduce_):
+            parts = fused_update_seeded(
+                labels, *bind.score[3:], bind.deg_w, loads / bind.capacity,
+                noise, bind.num_real_local, k, current_bonus,
+                degree_weighted, partial, lookup=lookup)
+            return finish(*parts, labels, bind.deg_w, loads, u, bind.valid,
+                          bind.capacity, reduce_)
+        return interior, frontier
+
+    def sharded_fused_graph_args_split(self, shard) -> tuple:
+        return self.sharded_graph_args_split(shard)
 
 
 SCORE_BACKENDS = {

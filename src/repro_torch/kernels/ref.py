@@ -6,7 +6,14 @@ current-label bonus, tie-noise argmax, M(l) partial) in the reference's
 op order; ``fused_propose_ref`` composes the two and is what the fused
 kernel computes, ``frontier_propose_ref`` what its frontier variant
 computes (inactive rows write a no-op proposal).  Both read an optional
-second edge segment, the on-device delta of appended entries.  The CPU
+second edge segment, the on-device delta of appended entries.  Every one
+gathers neighbour labels from ``lookup`` (default: ``labels``): on a shard
+of the sharded engine the rows' own labels are the rank's label shard and
+``dst`` indexes the exchange plan's lookup.  ``fused_propose_ref``'s
+``acc_init`` seeds the score rows with an interior partial, what the fused
+kernel's seeded form computes under the overlap schedule, and
+``interior_partial_ref`` is that partial (the score kernel over the
+interior segment, whose dst are local ids into the label shard).  The CPU
 path and the tests use these; on a card the wrappers in
 ``spinner_scores`` launch the kernels instead.
 
@@ -37,19 +44,30 @@ def csr_src(row_ptr: torch.Tensor) -> torch.Tensor:
         row_ptr[1:] - row_ptr[:-1])
 
 
-def spinner_scores_ref(labels: torch.Tensor, src: torch.Tensor,
+def spinner_scores_ref(lookup: torch.Tensor, src: torch.Tensor,
                        dst: torch.Tensor, w: torch.Tensor,
                        num_vertices: int, k: int,
-                       delta: tuple = ()) -> torch.Tensor:
-    """ComputeScores by scatter-add: scores[u, labels[v]] += w(u, v), over
+                       delta: tuple = (), init=None) -> torch.Tensor:
+    """ComputeScores by scatter-add: scores[u, lookup[v]] += w(u, v), over
     the edge list and then the ``delta`` list ``(src, dst, w)`` of appended
-    entries, if any (parallel edges carrying weight changes)."""
-    out = torch.zeros((num_vertices, k), dtype=torch.float32,
-                      device=labels.device)
+    entries, if any (parallel edges carrying weight changes), starting from
+    a copy of ``init`` (a (num_vertices, k) partial) or from zeros."""
+    out = (torch.zeros((num_vertices, k), dtype=torch.float32,
+                       device=lookup.device)
+           if init is None else init.clone())
     for s, d, we in [(src, dst, w)] + ([tuple(delta)] if delta else []):
-        out.index_put_((s.long(), labels[d.long()].long()), we,
+        out.index_put_((s.long(), lookup[d.long()].long()), we,
                        accumulate=True)
     return out
+
+
+def interior_partial_ref(labels_local: torch.Tensor, row_ptr: torch.Tensor,
+                         dst_local: torch.Tensor, w: torch.Tensor,
+                         k: int) -> torch.Tensor:
+    """The overlap schedule's interior partial: scores over a shard's
+    interior CSR, whose dst are local ids into the label shard."""
+    return spinner_scores_ref(labels_local, csr_src(row_ptr), dst_local, w,
+                              row_ptr.shape[0] - 1, k)
 
 
 def propose_ref(scores: torch.Tensor, labels: torch.Tensor,
@@ -83,15 +101,18 @@ def fused_propose_ref(labels: torch.Tensor, src: torch.Tensor,
                       deg_w: torch.Tensor, pen: torch.Tensor,
                       noise: torch.Tensor, num_real: int, k: int,
                       current_bonus: float, degree_weighted: bool,
-                      delta: tuple = ()) -> tuple:
+                      delta: tuple = (), lookup=None,
+                      acc_init=None) -> tuple:
     """What the fused kernel computes: scores, then ``propose_ref``.
 
     Vertices ``>= num_real`` are padding: they propose like any other
-    vertex but are left out of M(l).  ``delta`` as in
-    ``spinner_scores_ref``.
+    vertex but are left out of M(l).  ``delta`` and ``acc_init`` (the
+    seeded form's (V, k) interior partial) as ``spinner_scores_ref``'s
+    ``delta`` and ``init``; neighbours' labels come from ``lookup``.
     """
     v = labels.shape[0]
-    scores = spinner_scores_ref(labels, src, dst, w, v, k, delta)
+    scores = spinner_scores_ref(labels if lookup is None else lookup, src,
+                                dst, w, v, k, delta, init=acc_init)
     valid = torch.arange(v, device=labels.device) < num_real
     return propose_ref(scores, labels, deg_w, pen, noise, valid, k,
                        current_bonus, degree_weighted)
@@ -102,7 +123,7 @@ def frontier_propose_ref(labels: torch.Tensor, src: torch.Tensor,
                          deg_w: torch.Tensor, pen: torch.Tensor,
                          noise: torch.Tensor, valid: torch.Tensor, k: int,
                          current_bonus: float, degree_weighted: bool,
-                         delta: tuple = ()) -> tuple:
+                         delta: tuple = (), lookup=None) -> tuple:
     """What the fused kernel's frontier variant computes.
 
     ``valid`` is the frontier mode's ``real & active`` mask.  Rows inside
@@ -111,7 +132,8 @@ def frontier_propose_ref(labels: torch.Tensor, src: torch.Tensor,
     only rows in ``valid`` whose proposal differs from their label.
     """
     v = labels.shape[0]
-    scores = spinner_scores_ref(labels, src, dst, w, v, k, delta)
+    scores = spinner_scores_ref(labels if lookup is None else lookup, src,
+                                dst, w, v, k, delta)
     best, tot_best, tot_cur, m_partial = propose_ref(
         scores, labels, deg_w, pen, noise, valid, k, current_bonus,
         degree_weighted)

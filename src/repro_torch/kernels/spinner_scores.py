@@ -4,10 +4,15 @@
 ``fused_update`` computes the same reduction and the Eq. 7-8 proposal in
 one kernel, returning only ``(best, tot_best, tot_cur, m_partial)``;
 ``fused_update_frontier`` is its frontier variant, which skips the rows
-outside a (V,) active mask.  Both K1 forms also fold an optional second
-CSR segment ``delta = (row_ptr, dst, w)``, the session's on-device delta
-of appended entries.  A tensor on the CPU goes to the plain version in
-``ref``; a CUDA tensor launches the kernel or raises.  Each wrapper counts
+outside a (V,) active mask; ``fused_update_seeded`` is its overlap form,
+whose score rows start from a (V, k) interior partial (``acc_init``).  The
+base and frontier K1 forms also fold an optional second CSR segment
+``delta = (row_ptr, dst, w)``, the session's on-device delta of appended
+entries.  Every form gathers neighbour labels from ``lookup`` (default:
+``labels``); on a shard of the sharded engine that is the exchange plan's
+lookup, while ``labels`` are the rank's own rows.  A tensor on the CPU
+goes to the plain version in ``ref``; a CUDA tensor launches the kernel or
+raises.  Each wrapper counts
 its launches in a plain integer attribute (``spinner_scores.launches``),
 raised only where the kernel is launched, so a run can show that it went
 through the kernel.
@@ -23,13 +28,19 @@ from . import _build, ref
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "spinner_scores_csr": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
-    "fused_update_csr": (_I, [_P] * 14 + [_I, _I, _I, ctypes.c_float, _I,
+    "fused_update_csr": (_I, [_P] * 15 + [_I, _I, _I, ctypes.c_float, _I,
                                           _I, _P]),
-    "fused_update_frontier_csr": (_I, [_P] * 15 + [_I, _I, ctypes.c_float,
+    "fused_update_seeded_csr": (_I, [_P] * 13 + [_I, _I, _I, ctypes.c_float,
+                                                 _I, _I, _P]),
+    "fused_update_frontier_csr": (_I, [_P] * 16 + [_I, _I, ctypes.c_float,
                                                    _I, _I, _P]),
 }
 _WARPS = 8                    # warps (vertex rows in flight) per block
 _SMEM_FLOATS = 48 * 1024 // 4  # static-launch shared memory limit
+
+
+def _check_lookup(lookup, dev) -> None:
+    _build.check("lookup", lookup, torch.int32, (lookup.numel(),), dev)
 
 
 def _check_csr(labels, row_ptr, dst, w, k: int) -> int:
@@ -59,22 +70,28 @@ def _warps(k: int, extra_rows: int) -> int:
 
 
 def spinner_scores(labels: torch.Tensor, row_ptr: torch.Tensor,
-                   dst: torch.Tensor, w: torch.Tensor,
-                   k: int) -> torch.Tensor:
-    """(V, k) f32 scores ``s[v, l] = sum_{u in N(v)} w(v, u) [labels[u] = l]``
-    over the CSR ``(row_ptr, dst, w)``."""
+                   dst: torch.Tensor, w: torch.Tensor, k: int,
+                   lookup=None) -> torch.Tensor:
+    """(V, k) f32 scores ``s[v, l] = sum_{e in row v} w[e] [lookup[dst[e]]
+    = l]`` over the CSR ``(row_ptr, dst, w)`` of the V rows of ``labels``;
+    ``lookup`` holds the neighbours' labels (default ``labels``, as at one
+    device; on a shard, the exchange plan's lookup)."""
     v = _check_csr(labels, row_ptr, dst, w, k)
-    if labels.device.type == "cpu":
-        return ref.spinner_scores_ref(labels, ref.csr_src(row_ptr), dst, w,
+    dev = labels.device
+    if lookup is None:
+        lookup = labels
+    _check_lookup(lookup, dev)
+    if dev.type == "cpu":
+        return ref.spinner_scores_ref(lookup, ref.csr_src(row_ptr), dst, w,
                                       v, k)
     warps = _warps(k, 0)
-    out = torch.empty((v, k), dtype=torch.float32, device=labels.device)
+    out = torch.empty((v, k), dtype=torch.float32, device=dev)
     if v == 0:
         return out
-    with torch.cuda.device(labels.device):
-        stream = torch.cuda.current_stream(labels.device).cuda_stream
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         _build.launch("spinner_scores", _SIGNATURES, "spinner_scores_csr",
-                      (row_ptr, dst, w, labels, out), v, k, warps, stream)
+                      (row_ptr, dst, w, lookup, out), v, k, warps, stream)
     spinner_scores.launches += 1
     return out
 
@@ -82,23 +99,31 @@ def spinner_scores(labels: torch.Tensor, row_ptr: torch.Tensor,
 spinner_scores.launches = 0
 
 
-def _check_propose(labels, row_ptr, dst, w, deg_w, pen, noise, k,
-                   delta) -> tuple:
-    """Validate a K1 call; returns ``(v, delta or None)``."""
+def _check_propose(labels, row_ptr, dst, w, deg_w, pen, noise, k, delta,
+                   lookup) -> tuple:
+    """Validate a K1 call; returns ``(v, delta or None, lookup)``."""
     v = _check_csr(labels, row_ptr, dst, w, k)
     dev = labels.device
     _build.check("deg_w", deg_w, torch.float32, (v,), dev)
     _build.check("pen", pen, torch.float32, (k,), dev)
     _build.check("noise", noise, torch.float32, (v, k), dev)
+    if lookup is None:
+        lookup = labels
+    _check_lookup(lookup, dev)
     if not delta:
-        return v, None
+        return v, None, lookup
     d_row_ptr, d_dst, d_w = delta
     _build.check("delta row_ptr", d_row_ptr, torch.int64, (v + 1,), dev)
     _build.check("delta dst", d_dst, torch.int32, d_dst.shape, dev)
     _build.check("delta w", d_w, torch.float32, d_dst.shape, dev)
     if d_dst.dim() != 1:
         raise ValueError("delta dst and w must be 1-D")
-    return v, tuple(delta)
+    return v, tuple(delta), lookup
+
+
+def _check_num_real(num_real: int, v: int) -> None:
+    if not 0 <= num_real <= v:
+        raise ValueError(f"num_real={num_real} outside [0, {v}]")
 
 
 def _plain_delta(delta) -> tuple:
@@ -106,10 +131,10 @@ def _plain_delta(delta) -> tuple:
     return () if delta is None else (ref.csr_src(delta[0]), *delta[1:])
 
 
-def _launch_fused(fn: str, labels, row_ptr, dst, w, delta, deg_w, pen,
-                  noise, active, scalars: tuple, k: int) -> tuple:
-    """Allocate K1's outputs and launch C entry ``fn`` on the card."""
-    v, dev = labels.shape[0], labels.device
+def _launch_fused(fn: str, pointers: tuple, v: int, dev, scalars: tuple,
+                  k: int) -> tuple:
+    """Allocate K1's outputs and launch C entry ``fn`` on the card with
+    ``pointers`` (the inputs, in the entry's order) and the outputs."""
     warps = _warps(k, 1)
     best = torch.empty(v, dtype=torch.int32, device=dev)
     tot_best = torch.empty(v, dtype=torch.float32, device=dev)
@@ -117,13 +142,10 @@ def _launch_fused(fn: str, labels, row_ptr, dst, w, delta, deg_w, pen,
     m_partial = torch.zeros(k, dtype=torch.float32, device=dev)
     if v == 0:
         return best, tot_best, tot_cur, m_partial
-    extra = (None, None, None) if delta is None else delta
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _build.launch("spinner_scores", _SIGNATURES, fn,
-                      (row_ptr, dst, w, *extra, labels, deg_w, pen, noise,
-                       *(() if active is None else (active,)), best,
-                       tot_best, tot_cur, m_partial),
+                      (*pointers, best, tot_best, tot_cur, m_partial),
                       *scalars, warps, stream)
     return best, tot_best, tot_cur, m_partial
 
@@ -132,27 +154,28 @@ def fused_update(labels: torch.Tensor, row_ptr: torch.Tensor,
                  dst: torch.Tensor, w: torch.Tensor, deg_w: torch.Tensor,
                  pen: torch.Tensor, noise: torch.Tensor, num_real: int,
                  k: int, current_bonus: float, degree_weighted: bool,
-                 delta: tuple = ()) -> tuple:
+                 delta: tuple = (), lookup=None) -> tuple:
     """The Eq. 7-8 proposal straight from the CSR (see ``ref.propose_ref``).
 
     ``pen`` is the (k,) penalty ``loads / C``; ``noise`` the (V, k) tie
     noise; vertices ``>= num_real`` are padding, left out of M(l);
     ``delta`` an optional second CSR segment ``(row_ptr, dst, w)`` over
-    the same rows.  Returns ``(best int32 (V,), tot_best f32 (V,),
-    tot_cur f32 (V,), m_partial f32 (k,))``; the (V, k) score matrix is
-    never stored.
+    the same rows; ``lookup`` the neighbours' labels (default ``labels``).
+    Returns ``(best int32 (V,), tot_best f32 (V,), tot_cur f32 (V,),
+    m_partial f32 (k,))``; the (V, k) score matrix is never stored.
     """
-    v, delta = _check_propose(labels, row_ptr, dst, w, deg_w, pen, noise,
-                              k, delta)
-    if not 0 <= num_real <= v:
-        raise ValueError(f"num_real={num_real} outside [0, {v}]")
+    v, delta, lookup = _check_propose(labels, row_ptr, dst, w, deg_w, pen,
+                                      noise, k, delta, lookup)
+    _check_num_real(num_real, v)
     if labels.device.type == "cpu":
         return ref.fused_propose_ref(labels, ref.csr_src(row_ptr), dst, w,
                                      deg_w, pen, noise, num_real, k,
                                      current_bonus, degree_weighted,
-                                     _plain_delta(delta))
-    out = _launch_fused("fused_update_csr", labels, row_ptr, dst, w, delta,
-                        deg_w, pen, noise, None,
+                                     _plain_delta(delta), lookup=lookup)
+    extra = (None, None, None) if delta is None else delta
+    out = _launch_fused("fused_update_csr",
+                        (row_ptr, dst, w, *extra, labels, lookup, deg_w,
+                         pen, noise), v, labels.device,
                         (v, int(num_real), k, float(current_bonus),
                          int(bool(degree_weighted))), k)
     fused_update.launches += 1
@@ -162,12 +185,45 @@ def fused_update(labels: torch.Tensor, row_ptr: torch.Tensor,
 fused_update.launches = 0
 
 
+def fused_update_seeded(labels: torch.Tensor, row_ptr: torch.Tensor,
+                        dst: torch.Tensor, w: torch.Tensor,
+                        deg_w: torch.Tensor, pen: torch.Tensor,
+                        noise: torch.Tensor, num_real: int, k: int,
+                        current_bonus: float, degree_weighted: bool,
+                        acc_init: torch.Tensor, lookup=None) -> tuple:
+    """K1's overlap form (see ``ref.fused_propose_ref`` with ``acc_init``):
+    ``fused_update`` whose score rows start from ``acc_init``, the (V, k)
+    f32 partial of the shard's interior segment, and fold this CSR's edges
+    (the frontier segment, ``dst`` indexing ``lookup``).  Equal bit for bit
+    to ``fused_update`` over the interior and frontier edges together: every
+    partial is an exact integer in float32."""
+    v, _, lookup = _check_propose(labels, row_ptr, dst, w, deg_w, pen, noise,
+                                  k, (), lookup)
+    _check_num_real(num_real, v)
+    _build.check("acc_init", acc_init, torch.float32, (v, k), labels.device)
+    if labels.device.type == "cpu":
+        return ref.fused_propose_ref(labels, ref.csr_src(row_ptr), dst, w,
+                                     deg_w, pen, noise, num_real, k,
+                                     current_bonus, degree_weighted,
+                                     lookup=lookup, acc_init=acc_init)
+    out = _launch_fused("fused_update_seeded_csr",
+                        (row_ptr, dst, w, labels, lookup, acc_init, deg_w,
+                         pen, noise), v, labels.device,
+                        (v, int(num_real), k, float(current_bonus),
+                         int(bool(degree_weighted))), k)
+    fused_update_seeded.launches += 1
+    return out
+
+
+fused_update_seeded.launches = 0
+
+
 def fused_update_frontier(labels: torch.Tensor, row_ptr: torch.Tensor,
                           dst: torch.Tensor, w: torch.Tensor,
                           deg_w: torch.Tensor, pen: torch.Tensor,
                           noise: torch.Tensor, valid: torch.Tensor, k: int,
                           current_bonus: float, degree_weighted: bool,
-                          delta: tuple = ()) -> tuple:
+                          delta: tuple = (), lookup=None) -> tuple:
     """K1's frontier variant (see ``ref.frontier_propose_ref``).
 
     ``valid`` is the (V,) bool ``real & active`` mask: rows inside it
@@ -175,16 +231,18 @@ def fused_update_frontier(labels: torch.Tensor, row_ptr: torch.Tensor,
     noise and return ``best = labels``, ``tot_best = tot_cur = 0``; M(l)
     counts only rows inside it.
     """
-    v, delta = _check_propose(labels, row_ptr, dst, w, deg_w, pen, noise,
-                              k, delta)
+    v, delta, lookup = _check_propose(labels, row_ptr, dst, w, deg_w, pen,
+                                      noise, k, delta, lookup)
     _build.check("valid", valid, torch.bool, (v,), labels.device)
     if labels.device.type == "cpu":
         return ref.frontier_propose_ref(labels, ref.csr_src(row_ptr), dst,
                                         w, deg_w, pen, noise, valid, k,
                                         current_bonus, degree_weighted,
-                                        _plain_delta(delta))
-    out = _launch_fused("fused_update_frontier_csr", labels, row_ptr, dst, w,
-                        delta, deg_w, pen, noise, valid,
+                                        _plain_delta(delta), lookup=lookup)
+    extra = (None, None, None) if delta is None else delta
+    out = _launch_fused("fused_update_frontier_csr",
+                        (row_ptr, dst, w, *extra, labels, lookup, deg_w,
+                         pen, noise, valid), v, labels.device,
                         (v, k, float(current_bonus),
                          int(bool(degree_weighted))), k)
     fused_update_frontier.launches += 1

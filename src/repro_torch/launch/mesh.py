@@ -1,0 +1,110 @@
+"""The vertex-sharding mesh of the sharded engine, over ``torch.distributed``.
+
+The reference drives every device from one controller (``shard_map`` over a
+``jax.sharding.Mesh``).  Here the sharded engine is SPMD: one process per
+device, each holding its shard, all in one process group, and the mesh is a
+1-D ``torch.distributed.device_mesh.DeviceMesh`` whose one dimension is
+named after the reference's vertex axis (``"data"``).  Collectives run on
+that dimension's group: NCCL for CUDA tensors, gloo for CPU tensors.  A
+CUDA mesh on a group without NCCL is refused: gloo moves no CUDA tensor
+without staging it through host memory.
+
+``make_partition_mesh`` without an initialised process group (and with
+``num_devices`` 1 or None) brings up a one-rank group on an in-process
+``HashStore`` -- no network -- which is the reference's default "1-D mesh
+over the local devices" on a host with one card.  With a group it spans
+the world: launch one process per card (``torch.multiprocessing`` or
+``torchrun``) and call ``torch.distributed.init_process_group`` first.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+
+def _one_rank_group(device_type: str) -> None:
+    """A world of one process on an in-process store: NCCL serves CUDA
+    tensors where this PyTorch has it, gloo the CPU's."""
+    if torch.cuda.is_available() and dist.is_nccl_available():
+        backend = "cpu:gloo,cuda:nccl"
+    elif device_type == "cuda":
+        raise RuntimeError("a CUDA mesh needs NCCL, which this PyTorch "
+                           "build lacks")
+    else:
+        backend = "gloo"
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1)
+
+
+def make_partition_mesh(num_devices: Optional[int] = None,
+                        axis: str = "data", device=None) -> DeviceMesh:
+    """1-D vertex-sharding mesh for the sharded LPA engine.
+
+    ``partition(g, cfg, engine="sharded", mesh=make_partition_mesh())``
+    shards the run over every process of the group, one device each.
+    ``device`` is ``None`` (the CUDA card; raises without one) or
+    ``"cpu"``.  Asking for more devices than the world holds raises
+    ``ValueError``, as does asking for fewer: a mesh spans the group.
+    """
+    from ..core.engine import resolve_device   # lazy: engine imports us
+    dev_type = resolve_device(device).type
+    if not dist.is_initialized():
+        if num_devices not in (None, 1):
+            raise ValueError(
+                f"need {num_devices} devices, have 1: start one process "
+                "per device and call torch.distributed.init_process_group "
+                "before building a larger mesh")
+        _one_rank_group(dev_type)
+    world = dist.get_world_size()
+    n = world if num_devices is None else int(num_devices)
+    if n > world:    # not an assert: must survive python -O
+        raise ValueError(f"need {n} devices, have {world} processes in the "
+                         "group")
+    if n != world:
+        raise ValueError(f"a partition mesh spans its process group: asked "
+                         f"for {n} devices in a world of {world}")
+    mesh = init_device_mesh(dev_type, (n,), mesh_dim_names=(axis,))
+    mesh_group(mesh, axis)         # a CUDA mesh on a gloo group raises now
+    return mesh
+
+
+def mesh_size(mesh: DeviceMesh, axis: str = "data") -> int:
+    """The number of devices along ``axis`` (``mesh.shape[axis]`` in the
+    reference)."""
+    return mesh.size(_dim(mesh, axis))
+
+
+def mesh_group(mesh: DeviceMesh, axis: str = "data"):
+    """The process group of ``axis``, which the collectives run on; raises
+    for a CUDA mesh whose group has no NCCL backend."""
+    _dim(mesh, axis)
+    group = mesh.get_group(axis)
+    backend = str(dist.get_backend(group))
+    if mesh.device_type == "cuda" and "nccl" not in backend.lower():
+        raise ValueError(
+            f"a CUDA mesh needs an NCCL group, not {backend!r}: gloo cannot "
+            "gather CUDA tensors without staging them through host memory")
+    return group
+
+
+def mesh_rank(mesh: DeviceMesh, axis: str = "data") -> int:
+    """This process's index along ``axis`` (``axis_index`` in the
+    reference)."""
+    return mesh.get_local_rank(axis)
+
+
+def mesh_device(mesh: DeviceMesh) -> torch.device:
+    """The device this process's shard lives on."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def _dim(mesh: DeviceMesh, axis: str) -> int:
+    names = mesh.mesh_dim_names or ()
+    if axis not in names:
+        raise ValueError(f"mesh has no axis {axis!r}; axes: {names}")
+    return names.index(axis)

@@ -15,7 +15,9 @@ reference.  In partitionable mode the counter of element ``i`` of an
 output is the flat index split as ``(i >> 32, i & 0xffffffff)`` and the
 32-bit output is ``b0 ^ b1``; ``split`` stacks ``(b0, b1)``.  Because the
 counter is the flat index, large outputs are generated in row blocks
-(bounding the int64 temporaries) without changing a bit.
+(bounding the int64 temporaries) without changing a bit, and a slice of
+an output (``uniform(..., offset=)``, a shard's rows of a replicated
+draw) is drawn from its own counters alone.
 """
 from __future__ import annotations
 
@@ -72,11 +74,19 @@ def split(key: Key, num: int = 2) -> list:
     return [threefry2x32(k0, k1, 0, i) for i in range(num)]
 
 
-def _bit_blocks(key: Key, n: int, device):
-    """``(start, stop, bits)`` over the flat outputs, ``_BLOCK`` at a time."""
+def fold_in(key: Key, data: int) -> Key:
+    """``jax.random.fold_in(key, data)``: the block function of the key
+    over the counter ``(0, data)``, ``data`` taken as a uint32."""
+    return threefry2x32(key[0], key[1], 0, int(data) & _M32)
+
+
+def _bit_blocks(key: Key, n: int, device, offset: int = 0):
+    """``(start, stop, bits)`` over the flat outputs ``[0, n)`` at counters
+    ``offset + i``, ``_BLOCK`` at a time."""
     for start in range(0, n, _BLOCK):
         stop = min(n, start + _BLOCK)
-        idx = torch.arange(start, stop, dtype=torch.int64, device=device)
+        idx = torch.arange(offset + start, offset + stop, dtype=torch.int64,
+                           device=device)
         b0, b1 = threefry2x32(key[0], key[1], idx >> 32, idx & _M32)
         yield start, stop, b0 ^ b1
 
@@ -97,8 +107,12 @@ def _bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
 
 
 def uniform(key: Key, shape, minval: float = 0.0, maxval: float = 1.0, *,
-            device) -> torch.Tensor:
+            device, offset: int = 0) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32, minval, maxval)``.
+
+    With ``offset`` the result is the flat elements ``[offset, offset +
+    prod(shape))`` of a larger draw from the same key: e.g. rows ``[r,
+    r + n)`` of a ``(V, k)`` draw are ``uniform(key, (n, k), offset=r * k)``.
 
     Bit-exact for ``minval == 0``, which is every draw of the main path
     (tie noise in [0, tie), migration draws in [0, 1)).  For other
@@ -112,7 +126,7 @@ def uniform(key: Key, shape, minval: float = 0.0, maxval: float = 1.0, *,
     lo = float(np.float32(minval))
     span = float(np.float32(maxval) - np.float32(minval))
     out = torch.empty(math.prod(shape), dtype=torch.float32, device=device)
-    for start, stop, bits in _bit_blocks(key, out.numel(), device):
+    for start, stop, bits in _bit_blocks(key, out.numel(), device, offset):
         out[start:stop] = torch.clamp(_bits_to_unit(bits) * span + lo,
                                       min=lo)
     return out.reshape(shape)

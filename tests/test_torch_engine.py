@@ -216,14 +216,15 @@ def test_state_from_export_dict(small_world):
 
 
 def test_imports_neither_jax_nor_reference():
-    """The port (its application layer and session too) and
-    chip_smoke.py load without JAX or ``repro``."""
+    """The port (its application layer, session, mesh, exchange plans and
+    sharded layout too) and chip_smoke.py load without JAX or ``repro``."""
     code = (
         "import sys; sys.path.insert(0, 'src'); sys.path.insert(0, '.')\n"
         "import repro_torch, repro_torch.core, repro_torch.kernels\n"
         "import repro_torch.apps, repro_torch.core.pregel\n"
         "import repro_torch.core.session, repro_torch.core.delta\n"
-        "import repro_torch.core.incremental\n"
+        "import repro_torch.core.incremental, repro_torch.launch.mesh\n"
+        "import repro_torch.core.comm, repro_torch.core.distributed\n"
         "import repro_torch.convert, repro_torch.rng, chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
@@ -283,18 +284,34 @@ def test_runners_run_on_the_options_device(small_world, monkeypatch):
 
 
 def test_unported_options_raise(small_world):
+    """The sharded knobs are accepted and resolve as the reference's do;
+    unknown values raise, as they do there."""
     g = graph_from_reference(small_world)
-    for kw in (dict(mesh=object()), dict(label_exchange="halo"),
-               dict(delta_cap=8), dict(sharded_noise="folded"),
-               dict(overlap="on")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            EngineOptions(device="cpu", **kw)
+    for kw in (dict(label_exchange="halo"), dict(delta_cap=8),
+               dict(sharded_noise="folded"), dict(overlap="on")):
+        opts, ref_opts = EngineOptions(device="cpu", **kw), RefOptions(**kw)
+        for ndev in (1, 2, 4):
+            assert opts.resolved_label_exchange(ndev) \
+                == ref_opts.resolved_label_exchange(ndev)
+            assert opts.resolved_overlap(ndev) \
+                == ref_opts.resolved_overlap(ndev)
+        assert opts.resolved_sharded_noise() \
+            == ref_opts.resolved_sharded_noise()
     for bad in ("onn", "yes"):
         with pytest.raises(ValueError, match="unknown overlap"):
             EngineOptions(device="cpu", overlap=bad)
+    with pytest.raises(ValueError, match="unknown label_exchange"):
+        EngineOptions(device="cpu",
+                      label_exchange="bogus").resolved_label_exchange(2)
+    with pytest.raises(ValueError, match="unknown sharded_noise"):
+        EngineOptions(device="cpu",
+                      sharded_noise="bogus").resolved_sharded_noise()
     EngineOptions(device="cpu", overlap="off")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        partition(g, SpinnerConfig(k=4), engine="sharded", device="cpu")
+    cfg = SpinnerConfig(k=4, max_iters=30)
+    sharded = partition(g, cfg, engine="sharded", device="cpu")
+    fused = partition(g, cfg, engine="fused", device="cpu")
+    np.testing.assert_array_equal(sharded.labels, fused.labels)
+    assert sharded.iterations == fused.iterations
     with pytest.raises(ValueError):
         partition(g, SpinnerConfig(k=4), engine="fused", device="cpu",
                   record_history=True)

@@ -16,13 +16,16 @@ import torch
 
 from repro_torch import rng
 from repro_torch.apps import build_app_layout, run_app
-from repro_torch.core import (EngineOptions, SpinnerConfig, delta, engine,
-                              generators, open_session, partition)
+from repro_torch.core import (EngineOptions, SpinnerConfig, delta,
+                              distributed, engine, generators, open_session,
+                              partition)
 from repro_torch.kernels import ref
 from repro_torch.kernels.pregel_combine import pregel_combine, pregel_reduce
 from repro_torch.kernels.spinner_scores import (fused_update,
                                                 fused_update_frontier,
+                                                fused_update_seeded,
                                                 spinner_scores)
+from repro_torch.launch.mesh import make_partition_mesh
 
 pytestmark = pytest.mark.gpu
 
@@ -281,3 +284,69 @@ def test_session_frontier_adapt_on_card_matches_cpu(cuda, backend):
     assert gst["delta"] == wst["delta"]
     assert gst["delta"]["fast_adapts"] == 2
     assert gst["delta"]["host_rebuilds"] == 0 and gst["uploads"] == 1
+
+
+@pytest.mark.parametrize("ndev", [2, 3])
+@pytest.mark.parametrize("k", KS)
+def test_seeded_kernel_bitwise(cuda, padded, ndev, k):
+    """K1's overlap form on every shard of an ndev-way layout: the score
+    kernel's interior partial, then the seeded kernel over the frontier
+    against a global lookup -- bitwise equal to its plain version and to
+    the base kernel over the whole shard (the last shard has pad rows)."""
+    g, num_real = padded
+    vl = -(-g.num_vertices // ndev)
+    gen = np.random.default_rng(ndev * k)
+    lookup = torch.from_numpy(
+        gen.integers(0, k, vl * ndev).astype(np.int32)).to(cuda)
+    pen = torch.from_numpy(gen.uniform(0.8, 1.2, k).astype(np.float32)
+                           ).to(cuda)
+    for rank in range(ndev):
+        sh = distributed.rank_shard(g, ndev, rank, cuda)
+        labels = lookup[sh.offset:sh.offset + vl].contiguous()
+        noise = rng.uniform(rng.PRNGKey(k), (vl, k), 0.0, 1e-7, device=cuda)
+        n_real = min(max(num_real - sh.offset, 0), vl)
+        rp_i, src_i, d_i, w_i = sh.interior
+        rp_f, src_f, d_f, w_f = sh.frontier
+        partial = spinner_scores(labels, rp_i, d_i, w_i, k)
+        assert _bits_equal(partial, ref.interior_partial_ref(labels, rp_i,
+                                                             d_i, w_i, k))
+        for weighted in (True, False):
+            common = (sh.deg_w, pen, noise, n_real, k, 1e-6, weighted)
+            n1 = fused_update_seeded.launches
+            got = fused_update_seeded(labels, rp_f, d_f, w_f, *common,
+                                      partial, lookup=lookup)
+            assert fused_update_seeded.launches == n1 + 1
+            plain = ref.fused_propose_ref(labels, src_f, d_f, w_f, *common,
+                                          lookup=lookup, acc_init=partial)
+            whole = fused_update(labels, sh.whole[0], sh.whole[2],
+                                 sh.whole[3], *common, lookup=lookup)
+            for a, b, c in zip(got, plain, whole):
+                assert _bits_equal(a, b) and _bits_equal(a, c)
+
+
+@pytest.mark.parametrize("plan", ["allgather", "halo", "halo_delta",
+                                  "delta"])
+@pytest.mark.parametrize("overlap", ["on", "off"])
+def test_sharded_partition_on_card_matches_cpu(cuda, plan, overlap):
+    """World size 1 on the card (a one-rank NCCL group) against the same
+    run on the CPU, and against the card's fused run; K1's seeded form
+    launches once per iteration under overlap."""
+    g = generators.watts_strogatz(3000, 10, 0.25, seed=7)
+    cfg = SpinnerConfig(k=8, seed=3, max_iters=60)
+    kw = dict(label_exchange=plan, overlap=overlap)
+    n_seeded = fused_update_seeded.launches
+    card = partition(g, cfg, engine="sharded",
+                     mesh=make_partition_mesh(1),
+                     options=EngineOptions(**kw))
+    if overlap == "on":
+        assert fused_update_seeded.launches - n_seeded == card.iterations
+    cpu = partition(g, cfg, engine="sharded",
+                    mesh=make_partition_mesh(device="cpu"),
+                    options=EngineOptions(device="cpu", **kw))
+    fused = partition(g, cfg, engine="fused")
+    for other in (cpu, fused):
+        np.testing.assert_array_equal(card.labels, other.labels)
+        np.testing.assert_array_equal(card.loads, other.loads)
+        assert (card.iterations, card.halted) == (other.iterations,
+                                                  other.halted)
+    assert card.exchanged_bytes == 0.0

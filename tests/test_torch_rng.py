@@ -1,5 +1,6 @@
 """The threefry port (``repro_torch.rng``) is bit-exact with ``jax.random``
-in its default partitionable mode, for the calls the main path makes."""
+in its default partitionable mode, for the calls the engines make
+(``fold_in`` included: the sharded engine's folded noise)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,6 +36,32 @@ def test_prngkey_and_split(seed):
         assert _key_pair(jk) == tk and _key_pair(j_it) == t_it
         assert [_key_pair(x) for x in jax.random.split(j_it)] == \
             rng.split(t_it)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("data", [0, 1, 3, 7, 2**31 + 5, 2**32 - 1])
+def test_fold_in(seed, data):
+    jk = jax.random.fold_in(jax.random.PRNGKey(seed), data)
+    assert _key_pair(jk) == rng.fold_in(rng.PRNGKey(seed), data)
+    # the folded noise of one shard: fold the rank in, split, draw
+    jn, jm = jax.random.split(jk)
+    tn, tm = rng.split(rng.fold_in(rng.PRNGKey(seed), data))
+    want = np.asarray(jax.random.uniform(jn, (9, 5), jnp.float32, 0.0, 1e-7))
+    got = rng.uniform(tn, (9, 5), 0.0, 1e-7, device="cpu")
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  want.view(np.uint32))
+
+
+@pytest.mark.parametrize("offset_rows", [0, 1, 5, 31])
+def test_uniform_offset_is_a_slice(offset_rows):
+    """A shard's rows of a replicated draw: ``offset`` shifts the counters,
+    so the slice of the whole draw comes out bit for bit."""
+    want = np.asarray(jax.random.uniform(jax.random.PRNGKey(4), (40, 6)))
+    got = rng.uniform(rng.PRNGKey(4), (8, 6), device="cpu",
+                      offset=offset_rows * 6)
+    np.testing.assert_array_equal(
+        got.numpy().view(np.uint32),
+        want[offset_rows:offset_rows + 8].view(np.uint32))
 
 
 @pytest.mark.parametrize("seed", SEEDS)

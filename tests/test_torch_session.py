@@ -491,11 +491,17 @@ def test_closed_session_raises_one_message(base_graph):
 
 
 def test_sharded_raises_and_run_app_delegates(base_graph):
+    """A sharded session (the default one-rank mesh) runs as the
+    reference's on a 1-device mesh; its run_app is not ported yet and
+    raises; a single-device session's run_app delegates to the apps."""
     g = graph_from_reference(base_graph)
+    cfg = dict(k=3, seed=2, max_iters=40)
+    twin = Twin(base_graph, cfg, RefOptions(engine="sharded"),
+                _opts(engine="sharded"))
+    r, p = twin.call("partition")
+    assert p.engine == r.engine == "sharded"
     with pytest.raises(NotImplementedError, match="Slice D"):
-        open_session(g, SpinnerConfig(k=3), _opts(engine="sharded"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        EngineOptions(device="cpu", mesh=object())
+        twin.port.run_app("wcc")
     s = open_session(g, SpinnerConfig(k=3, seed=2), _opts())
     with pytest.raises(ValueError, match="partition"):
         s.run_app("wcc")
