@@ -63,7 +63,9 @@ about 128 M directed CSR entries, k = 32):
       into draws / interior / exchange / seeded kernel / epilogue; (h3) on
       the medium graph, every exchange plan x overlap on/off x score
       backend identical to (d)'s run;
-  (e) one JSON line describing each kernel.
+  (e) each kernel's achieved bytes/s (the bytes its bound counts over its
+      measured time) beside its bound, then one JSON line describing each
+      kernel.
 
 Exits non-zero, printing no result, if there is no CUDA device or any
 check fails.  The last line is ``{"ok": true, "device": {...}}``.
@@ -529,6 +531,10 @@ def pregel_kernels_against_plain(lay, dev, report: dict) -> None:
                      f"(plain {r['plain_ms_full_csr' + sfx]:.3f}, bound "
                      f"{r['bound_ms_full_csr' + sfx]:.3f})"), flush=True)
     del a_csr
+    k3 = out["pregel_reduce_csr"]
+    print(f"(f) pregel_reduce_csr (sum) against torch.sparse.mm in this run: "
+          f"{k3['ms']:.3f} ms / {k3['library_ms']:.3f} ms = "
+          f"{k3['ms'] / k3['library_ms']:.3f}", flush=True)
     report.update(out)
 
 
@@ -1236,6 +1242,24 @@ def phase_sharded_medium(g, base: np.ndarray, dev, report: dict) -> None:
           f"{time.perf_counter() - t0:.3f}s", flush=True)
 
 
+def print_rates(kernels: list) -> None:
+    """(e) Each kernel's achieved rate, the bytes its bound counts over its
+    measured time, beside the bound; adds ``achieved_bytes_per_s`` (and
+    ``_min`` for the combine kernels' min forms) to each entry."""
+    for r in kernels:
+        for sfx in ("", "_min"):
+            if "ms" + sfx not in r or "bytes" + sfx not in r:
+                continue
+            ms, nbytes = r["ms" + sfx], r["bytes" + sfx]
+            rate = nbytes / (ms * 1e-3)
+            r["achieved_bytes_per_s" + sfx] = rate
+            print(f"(e) {r['name']}{sfx}: {ms:.3f} ms for {nbytes} B = "
+                  f"{rate / 1e12:.3f} TB/s achieved, bound "
+                  f"{r['bound_ms' + sfx]:.3f} ms at "
+                  f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s "
+                  f"({r['bound_ms' + sfx] / ms:.3f} of it)", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1318,7 +1342,8 @@ def main() -> int:
                            front["random10"]["max_abs_err"]),
         "ms": front["ms"], "plain_ms": front["plain_ms"],
         "bound_ms": front["bound_ms"], "bound_by": front["bound_by"],
-        "library_ms": None, "active_fraction": front["active_fraction"],
+        "library_ms": None, "bytes": front["bytes"],
+        "active_fraction": front["active_fraction"],
         "ms_random10": front["random10"]["ms"],
         "plain_ms_random10": front["random10"]["plain_ms"],
         "bound_ms_random10": front["random10"]["bound_ms"],
@@ -1333,12 +1358,16 @@ def main() -> int:
                            report["seeded_shard_err"]),
         "ms": seeded["ms"], "plain_ms": seeded["plain_ms"],
         "bound_ms": seeded["bound_ms"], "bound_by": "bytes",
-        "library_ms": None,
+        "library_ms": None, "bytes": seeded["bytes"],
         "ms_4_shards": [r["seeded_ms"] for r in shards],
         "plain_ms_4_shards": [r["plain_seeded_ms"] for r in shards],
         "bound_ms_4_shards": [r["seeded_bound_ms"] for r in shards],
         "frontier_edges_4_shards": [r["frontier_edges"] for r in shards],
         "base_ms_4_shards": [r["base_ms"] for r in shards]})
+    for r in kernels:
+        if r["name"] in ("spinner_scores_csr", "fused_update_csr"):
+            r["bytes"] = report[r["name"]]["bytes"]
+    print_rates(kernels)
     k2 = next(r for r in kernels if r["name"] == "spinner_scores_csr")
     k2.update(interior_ms_4_shards=[r["interior_ms"] for r in shards],
               interior_bound_ms_4_shards=[r["interior_bound_ms"]

@@ -27,21 +27,20 @@
 //                                 proposal best = label, tb = tc = 0; M(l)
 //                                 counts active rows only.  The TPU skips
 //                                 whole tiles with no active vertex; here
-//                                 the skip is per row (one warp per row),
-//                                 which gives the same want, the same M(l)
-//                                 and, on active rows, the same outputs.
+//                                 the skip is per row (a group with no
+//                                 active row reads no edge), which gives
+//                                 the same want, the same M(l) and, on
+//                                 active rows, the same outputs.
 // The TPU kernels turn the scatter into one-hot x one-hot MXU products over
 // a tiled, degree-permuted edge layout because the TPU has no atomics.
 // Hopper has fast shared-memory atomics, so these kernels read the CSR as
-// it is: one warp per vertex row, lanes striding over the row's edges with
-// coalesced dst/w loads, one gathered label per edge, and an atomicAdd into
-// a k-float slice of shared memory owned by the warp.  Every form reads a
-// neighbour's label from `lookup` and a row's own label from `labels`: one
-// array at one device, two on a shard (the rank's label shard, and the
-// exchange plan's lookup that dst indexes).  K1's forms also
-// fold a second, optional CSR segment (d_row_ptr / d_dst / d_w, null when
-// absent): the session's on-device delta of appended entries, parallel
-// edges carrying weight changes.
+// it is and add each edge's weight into a score row in shared memory.
+// Every form reads a neighbour's label from `lookup` and a row's own label
+// from `labels`: one array at one device, two on a shard (the rank's label
+// shard, and the exchange plan's lookup that dst indexes).  K1's forms
+// also fold a second, optional CSR segment (d_row_ptr / d_dst / d_w, null
+// when absent): the session's on-device delta of appended entries,
+// parallel edges carrying weight changes.
 //
 // Bound on this card: bytes.  Per call the kernels must read row_ptr
 // (8 B/vertex), dst and w (8 B/edge), the labels, and -- for the fused one
@@ -52,9 +51,22 @@
 // read the (V,) mask, labels and three outputs for every row but row_ptr,
 // edges, degree and noise only for the active rows.  The label gather (lookup[dst[e]], 4 B per edge from a
 // random row) is the access that cannot coalesce; at the main path's 4 M
-// vertices the label vector (16.8 MB) fits in the 50 MB L2.  The design
-// keeps the score row in shared memory so the fused kernel never writes
-// the (V, k) matrix, and flushes M(l) once per block.
+// vertices the label vector (16.8 MB) fits in the 50 MB L2.
+//
+// K2 (spinner_scores_kernel) is the first design: one warp per row, lanes
+// striding over the row's edges, an atomicAdd per edge into the warp's
+// k-float score row.  K1 (fused_update_kernel) is redesigned for bytes in
+// flight and for converged labels, where one warp per row had all 32
+// lanes add into one shared address: a warp owns a group of up to 32
+// consecutive rows (see "K1: row groups" below), streams their one
+// contiguous edge range with 16-byte loads of dst and w, four consecutive
+// entries a lane, starts every label gather of a batch before adding any,
+// sums a lane's entries by (row, label) as integers before one add per
+// run, copies the group's noise (and seed) rows into shared memory with
+// cp.async while the edges stream, runs the epilogue a lane per row, and
+// writes best, tot_best and tot_cur with one coalesced store each.  The
+// score matrix never reaches device memory, and M(l) is summed per label
+// across the warp, then flushed once per block.
 //
 // Exactness: the Eq. 3 weights are 1 or 2, so every score sum is an exact
 // integer in f32 and any order of atomics gives the same bits as the
@@ -63,6 +75,8 @@
 // division and no contraction (built with -fmad=false, never fast-math),
 // and the argmax takes the FIRST maximum as jnp.argmax / torch.argmax do.
 // M(l) sums integer degrees (or ones) below 2^24, so its atomics are exact.
+// K1 sums weights and degrees as int32 within a warp (they are integers)
+// before adding the sums as floats.
 //
 // Each C entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() so a refused launch is reported.
@@ -112,16 +126,197 @@ __global__ void spinner_scores_kernel(
   }
 }
 
+// Eq. 8's total s / max(deg, 1) - pen, IEEE division.  A zero score
+// skips the division: 0 / denom is +0 for denom >= 1 (the scores are
+// integer sums, never -0), so the total is +0 - pen.
 __device__ __forceinline__ float eq8_total(float s, float denom, float pen) {
+  if (s == 0.0f) return __fsub_rn(0.0f, pen);
   return __fsub_rn(__fdiv_rn(s, denom), pen);
+}
+
+// ---- K1: row groups ------------------------------------------------------
+// A warp owns a group of `rows` consecutive rows (up to 32; fewer as k
+// grows, down to one).  Its shared memory holds, for the group's
+// selected rows (every row; in the frontier form the active ones), the
+// score rows, the noise rows and in the seeded form the seed rows, each
+// row `ks = k | 1` floats apart (an odd stride, so the epilogue's lane per
+// row hits 32 distinct banks); then off (33 int64), beg (32 int64) and
+// sel (32 int).  A block adds pen and its M(l) partial (k floats each).
+// spinner_scores.py's `fused_layout` reckons the same bytes.
+constexpr int kUnroll = 4;  // the epilogue's column loop (8: 1% faster,
+                            // 72 registers in one form)
+constexpr int kPer = 4;                 // consecutive entries a lane holds
+constexpr int kGroupBytes = 12672;     // a warp's float buffers, at most
+constexpr int kWarpFixedBytes = 656;   // 264 + 256 + 128, rounded to 16
+constexpr int kMaxSmem = 232448;       // 227 KB, a block's dynamic limit
+
+__host__ __device__ inline int row_stride(int k) { return k | 1; }
+
+template <bool kSeeded>
+__host__ __device__ inline int fused_bufs() { return kSeeded ? 3 : 2; }
+
+// rows per group: as many as kGroupBytes holds, between 1 and a warp
+template <bool kSeeded>
+__host__ __device__ inline int fused_rows(int k) {
+  const int r = kGroupBytes / (fused_bufs<kSeeded>() * 4 * row_stride(k));
+  return r < 1 ? 1 : (r > kWarp ? kWarp : r);
+}
+
+template <bool kSeeded>
+__host__ __device__ inline int fused_warp_bytes(int k) {
+  const int floats = fused_bufs<kSeeded>() * fused_rows<kSeeded>(k) *
+                     row_stride(k);
+  return kWarpFixedBytes + ((floats * 4 + 15) & ~15);
+}
+
+template <bool kSeeded>
+inline size_t fused_smem(int k, int warps) {
+  return static_cast<size_t>((2 * k * 4 + 15) & ~15) +
+         static_cast<size_t>(warps) * fused_warp_bytes<kSeeded>(k);
+}
+
+__device__ __forceinline__ void cp_async4(float* s, const float* g) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(s));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(a),
+               "l"(g) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Start copying rows base + (sel ? sel[i] : i), i < n, of the (V, k) f32
+// matrix `src` into buf[i * ks ..] (lanes on consecutive columns).
+__device__ __forceinline__ void copy_rows(float* buf,
+                                          const float* __restrict__ src,
+                                          const int* sel, int base, int n,
+                                          int k, int ks, int lane) {
+  for (int i = 0; i < n; ++i) {
+    const float* row =
+        src + static_cast<size_t>(base + (sel != nullptr ? sel[i] : i)) * k;
+    for (int j = lane; j < k; j += kWarp) cp_async4(buf + i * ks + j, row + j);
+  }
+}
+
+// Fold one CSR segment (rp, dst, w) of a group into its score rows
+// acc[i * ks + label], i the selected row.  Base form: the group's rows
+// own one contiguous entry range [gs, ge), streamed 128 entries a batch,
+// lane j holding four consecutive entries (16-byte loads of dst and w).
+// Frontier form: only the n selected rows base + sel[i]; their ranges are
+// laid end to end (a prefix sum of their lengths in off, their starts in
+// beg) and lane j holds four consecutive entries of that virtual stream.
+// Every label gather of a batch is started before any is added.  A lane
+// sums its own consecutive entries by (row, label) as integers (the
+// weights are integers, so every sum is exact) and adds each run once, so
+// converged labels cost about one shared-memory add per lane and batch,
+// not one per entry.  (Aggregating the lanes' last runs as well, by
+// __match_any_sync and __reduce_add_sync, measured slower on the H100.)
+template <bool kFrontier>
+__device__ __forceinline__ void fold_segment(
+    const long long* __restrict__ rp, const int* __restrict__ dst,
+    const float* __restrict__ w, const int* __restrict__ lookup, float* acc,
+    int ks, long long* off, long long* beg, const int* sel, int base, int n,
+    int lane) {
+  long long gs, ge;
+  if (!kFrontier) {
+    const long long lo = rp[base + min(lane, n)];
+    const long long hi = rp[base + min(lane + 1, n)];
+    if (lane == 0) off[0] = lo;
+    off[lane + 1] = hi;
+    gs = __shfl_sync(kFull, lo, 0);
+    ge = __shfl_sync(kFull, hi, kWarp - 1);
+  } else {
+    long long len = 0, start = 0;
+    if (lane < n) {
+      const int row = base + sel[lane];
+      start = rp[row];
+      len = rp[row + 1] - start;
+    }
+    long long incl = len;   // inclusive prefix sum over the lanes
+#pragma unroll
+    for (int d = 1; d < kWarp; d *= 2) {
+      const long long o = __shfl_up_sync(kFull, incl, d);
+      if (lane >= d) incl += o;
+    }
+    if (lane == 0) off[0] = 0;
+    off[lane + 1] = incl;      // lanes past n repeat the total
+    beg[lane] = start;
+    gs = 0;
+    ge = __shfl_sync(kFull, incl, kWarp - 1);
+  }
+  __syncwarp();
+  for (long long b = gs & ~3LL; b < ge; b += kPer * kWarp) {
+    const long long t0 = b + kPer * lane;
+    int d[kPer], r[kPer];
+    float we[kPer];
+    if (!kFrontier) {
+#pragma unroll
+      for (int j = 0; j < kPer; j += 4) {
+        const int4 d4 = csr::load4(dst, t0 + j, gs, ge, -1);
+        const float4 w4 = csr::load4(w, t0 + j, gs, ge, 0.0f);
+        d[j] = d4.x; d[j + 1] = d4.y; d[j + 2] = d4.z; d[j + 3] = d4.w;
+        we[j] = w4.x; we[j + 1] = w4.y; we[j + 2] = w4.z; we[j + 3] = w4.w;
+      }
+    }
+    int row = -1;
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      const long long t = t0 + q;
+      r[q] = 0;
+      if (t >= gs && t < ge) {
+        if (row < 0) row = csr::row_of(off, n, t);
+        while (off[row + 1] <= t) ++row;
+        r[q] = row;
+        if (kFrontier) {
+          const long long e = beg[row] + (t - off[row]);
+          d[q] = __ldg(dst + e);
+          we[q] = __ldg(w + e);
+        }
+      } else if (kFrontier) {
+        d[q] = -1;
+        we[q] = 0.0f;
+      }
+    }
+    int lab[kPer];
+#pragma unroll
+    for (int q = 0; q < kPer; ++q)
+      lab[q] = d[q] >= 0 && we[q] != 0.0f ? __ldg(lookup + d[q]) : -1;
+    int key = -1, sum = 0;
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      if (lab[q] < 0) continue;            // outside the range, or weight 0
+      const int kq = r[q] * ks + lab[q];
+      if (kq != key) {
+        if (key >= 0) atomicAdd(acc + key, static_cast<float>(sum));
+        key = kq;
+        sum = 0;
+      }
+      sum += __float2int_rn(we[q]);
+    }
+    if (key >= 0) atomicAdd(acc + key, static_cast<float>(sum));
+  }
+  __syncwarp();
 }
 
 // kFrontier: `active` is the (V,) real & active mask (1 byte a row); rows
 // outside it write the no-op proposal.  Otherwise rows >= num_real are
 // padding, left out of M(l) (on a shard the caller passes the shard's real
 // row count, the global count less the shard's offset, clamped to [0, V]).
-// kSeeded: `acc_init` is the (V, k) partial the score row starts from
-// (a template flag, so the other forms carry no seed branch or register).
+// kSeeded: `acc_init` is the (V, k) partial the scores start from (a
+// template flag, so the other forms carry no seed branch or register).
+//
+// Groups are taken grid-stride.  For each, the warp reads the group's
+// labels (and active bytes: one load and a ballot) with one coalesced
+// load, starts the asynchronous copy (cp.async) of the selected rows'
+// noise -- and seed -- rows into shared memory, folds the edges while the
+// copies run, then gives each selected row a lane for the Eq. 7-8
+// epilogue, and writes best, tot_best and tot_cur with one coalesced
+// store each.  A group with no active row reads no row pointer, edge,
+// degree, noise or seed.
 template <bool kFrontier, bool kSeeded>
 __global__ void fused_update_kernel(
     const long long* __restrict__ row_ptr, const int* __restrict__ dst,
@@ -134,74 +329,123 @@ __global__ void fused_update_kernel(
     float* __restrict__ tot_best_out, float* __restrict__ tot_cur_out,
     float* __restrict__ m_out, int num_vertices, int num_real, int k,
     float bonus, int degree_weighted) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
   const int warps = blockDim.x / kWarp;
-  float* m_block = smem;                  // (k,) this block's M(l) partial
-  float* acc = smem + k + warp * k;       // (k,) this warp's score row
-  for (int l = threadIdx.x; l < k; l += blockDim.x) m_block[l] = 0.0f;
+  const int rows = fused_rows<kSeeded>(k);
+  const int ks = row_stride(k);
+  float* s_pen = reinterpret_cast<float*>(smem_raw);     // (k,) pen
+  float* m_block = s_pen + k;                            // (k,) M(l)
+  unsigned char* mine = smem_raw + ((2 * k * 4 + 15) & ~15) +
+                        static_cast<size_t>(warp) *
+                            fused_warp_bytes<kSeeded>(k);
+  long long* off = reinterpret_cast<long long*>(mine);          // 33
+  long long* beg = reinterpret_cast<long long*>(mine + 264);    // 32
+  int* sel = reinterpret_cast<int*>(mine + 520);                // 32
+  float* acc = reinterpret_cast<float*>(mine + kWarpFixedBytes);
+  float* nz = acc + rows * ks;
+  float* seed = nz + rows * ks;   // the seeded form's third buffer
+  for (int l = threadIdx.x; l < k; l += blockDim.x) {
+    s_pen[l] = pen[l];
+    m_block[l] = 0.0f;
+  }
   __syncthreads();
 
-  for (int v = blockIdx.x * warps + warp; v < num_vertices;
-       v += gridDim.x * warps) {
-    const int cur = labels[v];
-    if (kFrontier && !active[v]) {
-      // the whole warp skips the row: no edge, degree or noise read
-      if (lane == 0) {
-        best_out[v] = cur;
-        tot_best_out[v] = 0.0f;
-        tot_cur_out[v] = 0.0f;
-      }
-      continue;
+  const int groups = (num_vertices + rows - 1) / rows;
+  for (int g = blockIdx.x * warps + warp; g < groups;
+       g += gridDim.x * warps) {
+    const int base = g * rows;
+    const int n = min(rows, num_vertices - base);
+    const int cur_lane = lane < n ? labels[base + lane] : 0;
+    unsigned mask = n == kWarp ? kFull : (1u << n) - 1u;   // selected rows
+    float deg_lane = 0.0f;
+    if (kFrontier) {
+      const bool act = lane < n && active[base + lane] != 0;
+      mask = __ballot_sync(kFull, act);
+      if (act) sel[__popc(mask & ((1u << lane) - 1u))] = lane;
+      __syncwarp();
     }
-    if (kSeeded) {
-      const float* seed = acc_init + static_cast<size_t>(v) * k;
-      for (int l = lane; l < k; l += kWarp) acc[l] = seed[l];
-    } else {
-      for (int l = lane; l < k; l += kWarp) acc[l] = 0.0f;
-    }
-    __syncwarp();
-    accumulate_row(row_ptr, dst, w, lookup, acc, v, lane);
-    if (d_row_ptr != nullptr)
-      accumulate_row(d_row_ptr, d_dst, d_w, lookup, acc, v, lane);
-    __syncwarp();
+    if ((mask >> lane) & 1u) deg_lane = deg_w[base + lane];
+    const int n_sel = kFrontier ? __popc(mask) : n;
+    int my_best = cur_lane;
+    float my_tb = 0.0f, my_tc = 0.0f;
+    if (n_sel > 0) {
+      const int* rsel = kFrontier ? sel : nullptr;
+      copy_rows(nz, noise, rsel, base, n_sel, k, ks, lane);
+      if (kSeeded) copy_rows(seed, acc_init, rsel, base, n_sel, k, ks, lane);
+      cp_async_commit();
+      for (int t = lane; t < n_sel * ks; t += kWarp) acc[t] = 0.0f;
+      fold_segment<kFrontier>(row_ptr, dst, w, lookup, acc, ks, off, beg,
+                              sel, base, n_sel, lane);
+      if (d_row_ptr != nullptr)
+        fold_segment<kFrontier>(d_row_ptr, d_dst, d_w, lookup, acc, ks, off,
+                                beg, sel, base, n_sel, lane);
+      cp_async_wait_all();
+      __syncwarp();
 
-    // Eq. 7-8: each lane scans its columns in increasing order, keeping
-    // the first maximum of x = (total + noise) + bonus * [l == label].
-    const float deg = deg_w[v];
-    const float denom = fmaxf(deg, 1.0f);
-    const float* nrow = noise + static_cast<size_t>(v) * k;
-    float bval = -CUDART_INF_F;
-    int bidx = INT_MAX;
-    for (int l = lane; l < k; l += kWarp) {
-      const float x = __fadd_rn(__fadd_rn(eq8_total(acc[l], denom, pen[l]),
-                                          nrow[l]),
-                                l == cur ? bonus : 0.0f);
-      if (x > bval) {
-        bval = x;
-        bidx = l;
+      int move = -1, mass = 0;   // this lane's row's M(l) label and mass
+      const int li = kFrontier ? sel[lane < n_sel ? lane : 0] : lane;
+      const int cur = __shfl_sync(kFull, cur_lane, li);
+      const float deg = __shfl_sync(kFull, deg_lane, li);
+      // Eq. 7-8, a lane per selected row: scan the columns in increasing
+      // order, keeping the first maximum of x = (total + noise) + bonus *
+      // [l == label] (the first match, as torch.argmax).
+      if (lane < n_sel) {
+        const float denom = fmaxf(deg, 1.0f);
+        const float* arow = acc + lane * ks;
+        const float* nrow = nz + lane * ks;
+        const float* srow = seed + lane * ks;
+        float bval = -CUDART_INF_F;
+        int bidx = INT_MAX;
+#pragma unroll kUnroll
+        for (int l = 0; l < k; ++l) {
+          const float s = kSeeded ? __fadd_rn(srow[l], arow[l]) : arow[l];
+          const float x = __fadd_rn(
+              __fadd_rn(eq8_total(s, denom, s_pen[l]), nrow[l]),
+              l == cur ? bonus : 0.0f);
+          if (x > bval) {
+            bval = x;
+            bidx = l;
+          }
+        }
+        const float sb = kSeeded ? __fadd_rn(srow[bidx], arow[bidx])
+                                 : arow[bidx];
+        const float sc = kSeeded ? __fadd_rn(srow[cur], arow[cur]) : arow[cur];
+        my_best = bidx;
+        my_tb = eq8_total(sb, denom, s_pen[bidx]);
+        my_tc = eq8_total(sc, denom, s_pen[cur]);
+        // a frontier row that got here is active, hence real
+        if ((kFrontier || base + li < num_real) && bidx != cur) {
+          move = bidx;
+          mass = degree_weighted ? __float2int_rn(deg) : 1;
+        }
+      }
+      // M(l): the lanes moving to one label sum their (integer) degrees
+      // and its lowest lane adds the sum, one shared-memory add per label
+      const unsigned same = __match_any_sync(kFull, move);
+      if (move >= 0) {
+        const int total = __reduce_add_sync(same, mass);
+        if (lane == __ffs(same) - 1)
+          atomicAdd(&m_block[move], static_cast<float>(total));
+      }
+      if (kFrontier) {   // row `lane`'s result sits on lane rank(lane)
+        const int rank = __popc(mask & ((1u << lane) - 1u));
+        const int b = __shfl_sync(kFull, my_best, rank);
+        const float tb = __shfl_sync(kFull, my_tb, rank);
+        const float tc = __shfl_sync(kFull, my_tc, rank);
+        const bool on = (mask >> lane) & 1u;
+        my_best = on ? b : cur_lane;
+        my_tb = on ? tb : 0.0f;
+        my_tc = on ? tc : 0.0f;
       }
     }
-    // Warp argmax: larger value wins, equal values go to the smaller
-    // column -- a total order, so every lane ends on the first maximum.
-    for (int off = kWarp / 2; off > 0; off /= 2) {
-      const float ov = __shfl_xor_sync(kFull, bval, off);
-      const int oi = __shfl_xor_sync(kFull, bidx, off);
-      if (ov > bval || (ov == bval && oi < bidx)) {
-        bval = ov;
-        bidx = oi;
-      }
+    if (lane < n) {
+      best_out[base + lane] = my_best;
+      tot_best_out[base + lane] = my_tb;
+      tot_cur_out[base + lane] = my_tc;
     }
-    if (lane == 0) {
-      best_out[v] = bidx;
-      tot_best_out[v] = eq8_total(acc[bidx], denom, pen[bidx]);
-      tot_cur_out[v] = eq8_total(acc[cur], denom, pen[cur]);
-      // a frontier row that got here is active, hence real
-      if ((kFrontier || v < num_real) && bidx != cur)
-        atomicAdd(&m_block[bidx], degree_weighted ? deg : 1.0f);
-    }
-    __syncwarp();   // lane 0 has read acc before the next row zeroes it
+    __syncwarp();   // every lane is done with the buffers of this group
   }
 
   __syncthreads();
@@ -219,12 +463,18 @@ int launch_fused(const void* row_ptr, const void* dst, const void* w,
                  int num_real, int k, float bonus, int degree_weighted,
                  int warps, void* stream) {
   const int threads = warps * kWarp;
-  const size_t smem = static_cast<size_t>(warps + 1) * k * sizeof(float);
-  const int grid = csr::grid_for(fused_update_kernel<kFrontier, kSeeded>,
-                                 num_vertices, threads, smem, warps);
-  fused_update_kernel<kFrontier, kSeeded><<<grid, threads, smem,
-                                            static_cast<cudaStream_t>(
-                                                stream)>>>(
+  const size_t smem = fused_smem<kSeeded>(k, warps);
+  if (smem > static_cast<size_t>(kMaxSmem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = fused_update_kernel<kFrontier, kSeeded>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rows = fused_rows<kSeeded>(k);
+  const int grid = csr::grid_for(kernel, (num_vertices + rows - 1) / rows,
+                                 threads, smem, warps);
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const long long*>(row_ptr), static_cast<const int*>(dst),
       static_cast<const float*>(w), static_cast<const long long*>(d_row_ptr),
       static_cast<const int*>(d_dst), static_cast<const float*>(d_w),

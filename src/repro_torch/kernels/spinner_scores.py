@@ -35,8 +35,15 @@ _SIGNATURES = {
     "fused_update_frontier_csr": (_I, [_P] * 16 + [_I, _I, ctypes.c_float,
                                                    _I, _I, _P]),
 }
-_WARPS = 8                    # warps (vertex rows in flight) per block
-_SMEM_FLOATS = 48 * 1024 // 4  # static-launch shared memory limit
+_WARPS = 8                    # warps per block
+_SMEM_FLOATS = 48 * 1024 // 4  # K2's shared memory limit (static launch)
+# K1's shared memory, as fused_rows / fused_smem in spinner_scores.cu
+# reckon it: per warp a fixed part and its float buffers (score, noise
+# and, in the seeded form, seed rows of k | 1 floats each), at most
+# _GROUP_BYTES
+_GROUP_BYTES = 12672
+_WARP_FIXED_BYTES = 656
+MAX_SMEM_BYTES = 232448        # 227 KB, a block's dynamic shared memory
 
 
 def _check_lookup(lookup, dev) -> None:
@@ -59,14 +66,33 @@ def _check_csr(labels, row_ptr, dst, w, k: int) -> int:
     return v
 
 
-def _warps(k: int, extra_rows: int) -> int:
-    """Warps per block whose score rows (plus ``extra_rows`` block-wide
-    k-vectors) fit the static shared-memory limit."""
-    warps = min(_WARPS, _SMEM_FLOATS // k - extra_rows)
+def _warps(k: int) -> int:
+    """K2's warps per block whose score rows fit the static shared-memory
+    limit."""
+    warps = min(_WARPS, _SMEM_FLOATS // k)
     if warps < 1:
         raise ValueError(f"k={k} is too large for the CSR kernels' "
                          "shared-memory score rows")
     return warps
+
+
+def fused_layout(k: int, seeded: bool) -> tuple:
+    """``(warps, rows, smem_bytes)`` of a K1 launch at ``k``: the warps per
+    block, the rows of each warp's group (up to 32, down to one as k
+    grows) and the block's dynamic shared memory, which must fit
+    ``MAX_SMEM_BYTES``; the kernel derives the same rows and bytes."""
+    if k < 1:
+        raise ValueError(f"k must be positive, got {k}")
+    bufs = 3 if seeded else 2
+    stride = k | 1
+    rows = max(1, min(32, _GROUP_BYTES // (bufs * 4 * stride)))
+    per_warp = _WARP_FIXED_BYTES + -(-bufs * rows * stride * 4 // 16) * 16
+    head = -(-2 * k * 4 // 16) * 16
+    warps = min(_WARPS, (MAX_SMEM_BYTES - head) // per_warp)
+    if warps < 1:
+        raise ValueError(f"k={k} is too large for the fused kernel's "
+                         "shared-memory score and noise rows")
+    return warps, rows, head + warps * per_warp
 
 
 def spinner_scores(labels: torch.Tensor, row_ptr: torch.Tensor,
@@ -84,7 +110,7 @@ def spinner_scores(labels: torch.Tensor, row_ptr: torch.Tensor,
     if dev.type == "cpu":
         return ref.spinner_scores_ref(lookup, ref.csr_src(row_ptr), dst, w,
                                       v, k)
-    warps = _warps(k, 0)
+    warps = _warps(k)
     out = torch.empty((v, k), dtype=torch.float32, device=dev)
     if v == 0:
         return out
@@ -135,7 +161,7 @@ def _launch_fused(fn: str, pointers: tuple, v: int, dev, scalars: tuple,
                   k: int) -> tuple:
     """Allocate K1's outputs and launch C entry ``fn`` on the card with
     ``pointers`` (the inputs, in the entry's order) and the outputs."""
-    warps = _warps(k, 1)
+    warps = fused_layout(k, fn == "fused_update_seeded_csr")[0]
     best = torch.empty(v, dtype=torch.int32, device=dev)
     tot_best = torch.empty(v, dtype=torch.float32, device=dev)
     tot_cur = torch.empty(v, dtype=torch.float32, device=dev)

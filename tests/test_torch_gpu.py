@@ -350,3 +350,136 @@ def test_sharded_partition_on_card_matches_cpu(cuda, plan, overlap):
         assert (card.iterations, card.halted) == (other.iterations,
                                                   other.halted)
     assert card.exchanged_bytes == 0.0
+
+
+# ---- the row-group kernels (K3 and K1) on the shapes their design must
+# handle: a hub longer than a batch or a group's edges, runs of empty
+# rows (whole groups empty), V not a multiple of the group size, V = 1,
+# and enough rows that each warp walks several groups.
+
+def _csr_case(name, gen):
+    """``(row_ptr, dst, w)`` numpy arrays of a small CSR over its own rows
+    (dst < V); weights 1 or 2 with some weight-0 pad entries."""
+    if name == "star":                # hub rows of 1,500 and 200 entries
+        v = 300
+        lens = np.ones(v, np.int64)
+        lens[5], lens[40] = 1500, 200
+    elif name == "empty_runs":        # 40 empty rows, then scattered ones
+        v = 200
+        lens = gen.integers(0, 40, v)
+        lens[:40] = 0
+        lens[gen.random(v) < 0.3] = 0
+    elif name == "ragged":            # V a multiple of no group size
+        v = 97
+        lens = gen.integers(0, 40, v)
+    elif name == "many_groups":       # several groups a warp: more rows
+        v = 600_001                   # than one sweep of the grid holds
+        lens = gen.integers(0, 6, v)
+    else:                             # "single": V = 1
+        v = 1
+        lens = np.array([3])
+    row_ptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    e = int(row_ptr[-1])
+    dst = gen.integers(0, v, e).astype(np.int32)
+    w = gen.choice(np.array([0.0, 1.0, 2.0], np.float32), e,
+                   p=[0.1, 0.6, 0.3])
+    return row_ptr, dst, w
+
+
+CASES = ["star", "empty_runs", "ragged", "single", "many_groups"]
+
+
+@pytest.mark.parametrize("combine,bias", [("sum", 0), ("min", 1)])
+@pytest.mark.parametrize("case", CASES + ["unaligned"])
+def test_reduce_groups_match_plain(cuda, case, combine, bias):
+    """K3 on each shape, with and without a seed: min bitwise equal to the
+    plain version, sum within rtol 1e-5 and bitwise equal to itself over
+    three launches.  "unaligned" reads dst from an offset of one entry, so
+    no 16-byte load lines up."""
+    gen = np.random.default_rng(len(case) + bias)
+    rp, dst, _ = _csr_case("star" if case == "unaligned" else case, gen)
+    v = rp.size - 1
+    if case == "unaligned":
+        dst = np.concatenate([[0], dst]).astype(np.int32)
+    dst_t = torch.from_numpy(dst).to(cuda)
+    if case == "unaligned":
+        dst_t = dst_t[1:]
+    rp_t = torch.from_numpy(rp).to(cuda)
+    if combine == "sum":
+        send, init = (torch.from_numpy(gen.uniform(0, 1e-3, v).astype(
+            np.float32)).to(cuda) for _ in range(2))
+    else:
+        send, init = (torch.from_numpy(gen.integers(0, v, v).astype(
+            np.int32)).to(cuda) for _ in range(2))
+        send[::3] = ref.INF_I32
+    for seed in (None, init):
+        kw = dict(combine=combine, bias=bias, acc_init=seed)
+        n = pregel_reduce.launches
+        got = [pregel_reduce(send, rp_t, dst_t, **kw) for _ in range(3)]
+        assert pregel_reduce.launches == n + 3
+        want = ref.pregel_reduce_ref(send, rp_t, dst_t, **kw)
+        assert all(_bits_equal(got[0], x) for x in got[1:])
+        if combine == "min":
+            assert _bits_equal(got[0], want)
+        else:
+            assert torch.allclose(got[0], want, rtol=1e-5, atol=1e-9)
+
+
+@pytest.mark.parametrize("labels_kind", ["random", "converged"])
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("k", KS)
+def test_fused_groups_match_plain(cuda, k, case, labels_kind):
+    """K1's three forms on each shape against their plain versions, bit
+    for bit: the base form with and without a delta segment, the frontier
+    form under a mask with whole groups inactive and a group with exactly
+    one active row (and the delta segment), the seeded form from an
+    integer partial.  "converged" puts nearly every neighbour on one label,
+    where all 32 lanes of a batch share a (row, label) key."""
+    gen = np.random.default_rng(k + len(case))
+    rp, dst, w = _csr_case(case, gen)
+    v = rp.size - 1
+    d_rp, d_dst, d_w = _csr_case(case, np.random.default_rng(k))
+    d_dst %= v
+    if labels_kind == "random":
+        lookup = gen.integers(0, k, v).astype(np.int32)
+    else:
+        lookup = np.where(gen.random(v) < 0.01, gen.integers(0, k, v),
+                          k // 2).astype(np.int32)
+    up = (lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda))
+    labels, rp_t, dst_t, w_t = up(lookup), up(rp), up(dst), up(w)
+    src_t = ref.csr_src(rp_t)
+    deg_w = torch.zeros(v, dtype=torch.float32, device=cuda).index_add_(
+        0, src_t.long(), w_t)
+    pen = gen.uniform(0.8, 1.2, k).astype(np.float32)
+    pen[0] = 0.0                          # an empty part: +0 - 0 stays +0
+    pen = up(pen)
+    noise = rng.uniform(rng.PRNGKey(k), (v, k), 0.0, 1e-7, device=cuda)
+    seg = (up(d_rp), up(d_dst), up(d_w))
+    plain_seg = (ref.csr_src(seg[0]), seg[1], seg[2])
+    num_real = max(v - 3, 0)
+    act = gen.random(v) < 0.1
+    act[:32] = False                      # whole groups inactive
+    act[32:64] = False
+    act[33:34] = True                     # ... and one with one active row
+    act[64:96] = True
+    valid = up(act)
+    acc_init = up(gen.integers(0, 4, (v, k)).astype(np.float32))
+    for weighted in (True, False):
+        common = (deg_w, pen, noise)
+        tail = (k, 1e-6, weighted)
+        for s, ps in (((), ()), (seg, plain_seg)):
+            got = fused_update(labels, rp_t, dst_t, w_t, *common, num_real,
+                               *tail, s)
+            want = ref.fused_propose_ref(labels, src_t, dst_t, w_t, *common,
+                                         num_real, *tail, ps)
+            assert all(_bits_equal(a, b) for a, b in zip(got, want))
+            got = fused_update_frontier(labels, rp_t, dst_t, w_t, *common,
+                                        valid, *tail, s)
+            want = ref.frontier_propose_ref(labels, src_t, dst_t, w_t,
+                                            *common, valid, *tail, ps)
+            assert all(_bits_equal(a, b) for a, b in zip(got, want))
+        got = fused_update_seeded(labels, rp_t, dst_t, w_t, *common,
+                                  num_real, *tail, acc_init)
+        want = ref.fused_propose_ref(labels, src_t, dst_t, w_t, *common,
+                                     num_real, *tail, acc_init=acc_init)
+        assert all(_bits_equal(a, b) for a, b in zip(got, want))

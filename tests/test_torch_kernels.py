@@ -160,3 +160,18 @@ def test_wrappers_have_no_fallback():
             module.__name__
     assert Path(wrappers.__file__).with_name("csrc").joinpath(
         "spinner_scores.cu").exists()
+
+
+@pytest.mark.parametrize("seeded", [False, True])
+def test_fused_layout_fits_shared_memory(seeded):
+    """Every k the K1 wrappers took before the row-group design (up to
+    6144, the old one-row-a-warp limit) still has a layout: at least one
+    warp, 1 to 32 rows a group, 32 at the main path's k = 32 unseeded,
+    and a block's shared memory within 227 KB."""
+    for k in range(1, 6145):
+        warps, rows, smem = wrappers.fused_layout(k, seeded)
+        assert 1 <= warps <= 8 and 1 <= rows <= 32
+        assert smem <= wrappers.MAX_SMEM_BYTES == 227 * 1024
+    assert wrappers.fused_layout(32, False)[:2] == (8, 32)
+    with pytest.raises(ValueError):
+        wrappers.fused_layout(0, seeded)
