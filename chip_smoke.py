@@ -22,7 +22,12 @@ about 128 M directed CSR entries, k = 32):
       iterations, which must give the same labels as the fused path;
   (d) a medium graph (``watts_strogatz(200_000, 16, 0.3, seed=1)``): the
       fused kernel, the split kernel and the PyTorch scatter oracle must
-      give the same labels, loads and iteration counts;
+      give the same labels, loads and iteration counts; (d2) the same graph
+      with its weights halved (0.5 and 1, so its degrees are not integers):
+      ``partition`` through the fused kernel equal to the torch backend's
+      run label for label, the fused kernel launched once per iteration,
+      and both score kernels bitwise equal to their plain versions on the
+      labels it converged to;
   (f) the Pregel applications on the full graph, placed by the labels (c)
       converged to and by the hash baseline: both placed layouts built on
       the card (timed); the two combine kernels at full size against
@@ -377,6 +382,64 @@ def phase_medium_parity(dev, report: dict) -> tuple:
     print(f"(d) medium parity V={MEDIUM_N}: cuda/on, cuda/off and torch/off "
           f"identical ({base.iterations} iterations)", flush=True)
     return g, base.labels
+
+
+def phase_halved_weights(g, dev) -> None:
+    """(d2) The medium graph with its weights halved: the fused kernel's
+    run against the torch backend's, and both score kernels against their
+    plain versions on the labels it converged to."""
+    from repro_torch import rng
+    from repro_torch.core import EngineOptions, SpinnerConfig, engine
+    from repro_torch.core import partition
+    from repro_torch.core.graph import _finish
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.spinner_scores import fused_update, spinner_scores
+
+    half = _finish(g.src, g.dst, np.float32(0.5) * g.weight, g.num_vertices)
+    check(not np.array_equal(half.deg_w, np.round(half.deg_w)),
+          "halved degrees are all integers")
+    cfg = SpinnerConfig(k=K)
+    runs = {}
+    for backend, fused in (("cuda", "on"), ("torch", "off")):
+        fused_update.launches = spinner_scores.launches = 0
+        runs[backend] = partition(half, cfg, engine="fused", options=(
+            EngineOptions(device=dev, score_backend=backend,
+                          fused_update=fused)))
+        n1, n2 = fused_update.launches, spinner_scores.launches
+        check((n1, n2) == ((runs[backend].iterations, 0) if backend == "cuda"
+                           else (0, 0)),
+              f"halved weights, {backend}: launches {n1}/{n2} in "
+              f"{runs[backend].iterations} iterations")
+    a, b = runs["cuda"], runs["torch"]
+    check(np.array_equal(a.labels, b.labels)
+          and np.array_equal(a.loads, b.loads)
+          and (a.iterations, a.halted) == (b.iterations, b.halted),
+          "halved weights: the fused kernel's run differs from torch's")
+    padded, num_real = engine.padded_view(half, EngineOptions(device=dev))
+    csr = padded.to_device(dev)
+    v = padded.num_vertices
+    labels = engine.pad_labels(torch.from_numpy(a.labels).to(dev), v)
+    pen = torch.from_numpy(a.loads).to(dev) / torch.tensor(
+        cfg.c * padded.total_weight / K, dtype=torch.float32, device=dev)
+    noise = rng.uniform(rng.PRNGKey(17), (v, K), 0.0, cfg.tie_noise,
+                        device=dev)
+    got = (spinner_scores(labels, csr.row_ptr, csr.dst, csr.weight, K),
+           *fused_update(labels, csr.row_ptr, csr.dst, csr.weight, csr.deg_w,
+                         pen, noise, num_real, K, cfg.current_bonus, True))
+    want = (ref.spinner_scores_ref(labels, csr.src, csr.dst, csr.weight, v,
+                                   K),
+            *ref.fused_propose_ref(labels, csr.src, csr.dst, csr.weight,
+                                   csr.deg_w, pen, noise, num_real, K,
+                                   cfg.current_bonus, True))
+    torch.cuda.synchronize()
+    for name, x, y in zip(("scores", "best", "tot_best", "tot_cur", "m"),
+                          got, want):
+        check(bits_equal(x, y), f"halved weights: {name} != plain")
+    print(f"(d2) medium V={g.num_vertices}, weights halved: cuda/on and "
+          f"torch/off identical ({a.iterations} iterations, halted="
+          f"{a.halted}, fused_update_csr launches={a.iterations}); "
+          f"spinner_scores_csr and fused_update_csr bitwise equal to their "
+          f"plain versions on its labels", flush=True)
 
 
 def hash_labels(v: int, k: int) -> np.ndarray:
@@ -1300,6 +1363,7 @@ def main() -> int:
     labels = phase_main_path(graph, padded, dev, report)
     torch.cuda.empty_cache()
     medium = phase_medium_parity(dev, report)
+    phase_halved_weights(medium[0], dev)
     torch.cuda.empty_cache()
     phase_apps(graph, labels, dev, report)
     phase_apps_medium(*medium, dev)

@@ -26,25 +26,28 @@
 // 50 MB L2, so the gather is served mostly from L2 and the stream of dst
 // sets the time -- if enough of it is in flight.
 //
-// K3 (reduce_group_kernel) is built for bytes in flight: a warp owns 32
-// consecutive rows, reads their row_ptr with one coalesced load, streams
-// their one contiguous dst range 256 entries a batch with 16-byte loads
-// (eight consecutive entries a lane), starts all eight gathers before
-// folding any, folds each lane's entries by row in edge order and merges
-// the rows that cross lanes with a segmented warp scan, and stores the 32
-// results with one coalesced store.  A hub row longer than a batch is
-// folded batch by batch by its warp.  One warp per row (the first design,
-// which K4 keeps in reduce_row) had one ~30-entry row of dst in flight
-// per warp and a chain of dependent loads per row.
+// Both kernels run on one row-group kernel (reduce_group_kernel), built
+// for bytes in flight: a warp owns 32 consecutive rows, reads their
+// row_ptr with one coalesced load, streams their one contiguous dst range
+// 256 entries a batch with 16-byte loads (eight consecutive entries a
+// lane), starts all eight gathers before folding any, folds each lane's
+// entries by row in edge order and merges the rows that cross lanes with a
+// segmented warp scan, and ends with a lane per row.  A hub row longer
+// than a batch is folded batch by batch by its warp; a group with no
+// entries reads no dst and no send.  The kernel is a template over its
+// epilogue: K3's writes init + acc (or acc) with one coalesced store; K4's
+// reads the group's valid, values (min) and init rows with one coalesced
+// load each -- issued when the group starts, before its entries stream --
+// then applies the vertex update and writes new and chg with one coalesced
+// store each.  So over the single-device empty frontier K4 is one pass
+// over (rows,) vectors, not a chain of dependent loads per row.
 //
-// Determinism: the sum uses no floating-point atomics.  K3 folds a lane's
-// entries in order, the lanes by a fixed scan tree, and the batches in
-// order; K4 folds each lane's edges (e = row start + lane, + 32, ...) in
-// order and its shuffle tree is fixed.  So a row's sum has the same bits
-// on every launch.  It rounds in another order than the reference's
-// scatter, which the tests allow for.  The min is order-free and so
-// bit-exact.  Built with -fmad=false, so base + damping * acc rounds
-// twice, as the reference's does.
+// Determinism: the sum uses no floating-point atomics.  The kernel folds a
+// lane's entries in order, the lanes by a fixed scan tree, and the batches
+// in order, so a row's sum has the same bits on every launch.  It rounds
+// in another order than the reference's scatter, which the tests allow
+// for.  The min is order-free and so bit-exact.  Built with -fmad=false,
+// so base + damping * acc rounds twice, as the reference's does.
 //
 // Each C entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() so a refused launch is reported.
@@ -81,24 +84,62 @@ struct MinI32 {
   static __device__ __forceinline__ T fold(T a, T b) { return min(a, b); }
 };
 
-// K4's fold of row v's messages (one warp per row), seeded by init[v]
-// when init is given.  Every lane returns; only lane 0's value is the
-// row's.  K3 no longer uses it (reduce_group_kernel below).
+// The epilogues.  load(v, in) runs when the group starts, a lane per row
+// (in: the row exists), and returns what the lane keeps until the end;
+// store(v, row, acc) then writes row v's result from the folded acc.
+// K3: out = init + acc (init: the optional seed).
 template <class M>
-__device__ __forceinline__ typename M::T reduce_row(
-    const long long* __restrict__ row_ptr, const int* __restrict__ dst,
-    const typename M::T* __restrict__ send,
-    const typename M::T* __restrict__ init, int bias, int v, int lane) {
-  typename M::T acc = M::identity();
-  const long long end = row_ptr[v + 1];
-  for (long long e = row_ptr[v] + lane; e < end; e += kWarp)
-    acc = M::fold(acc, M::message(send[dst[e]], bias));
-  for (int off = kWarp / 2; off > 0; off /= 2)
-    acc = M::fold(acc, __shfl_down_sync(kFull, acc, off));
-  return init != nullptr ? M::fold(init[v], acc) : acc;
-}
+struct ReduceEpilogue {
+  using T = typename M::T;
+  struct Row {};
+  const T* __restrict__ init;
+  T* __restrict__ out;
+  __device__ __forceinline__ Row load(int, bool) const { return Row{}; }
+  __device__ __forceinline__ void store(int v, Row, T acc) const {
+    out[v] = init != nullptr ? M::fold(init[v], acc) : acc;
+  }
+};
 
-// K3: one warp per group of kWarp consecutive rows.  The group's edges
+// K4: the vertex update after the seeded fold.
+//   sum:  new = valid ? base + damping * acc : 0,   chg = valid
+//   min:  new = valid ? min(values, acc) : values,  chg = valid && new != values
+template <class M>
+struct CombineEpilogue {
+  using T = typename M::T;
+  static constexpr bool kMin = std::is_same<M, MinI32>::value;
+  struct Row {
+    T seed, old;
+    bool ok;
+  };
+  const T* __restrict__ init;
+  const T* __restrict__ values;   // read by the min form only
+  const bool* __restrict__ valid;
+  T* __restrict__ new_out;
+  bool* __restrict__ chg_out;
+  float base, damping;
+  __device__ __forceinline__ Row load(int v, bool in) const {
+    Row r{M::identity(), T(), false};
+    if (in) {
+      r.ok = valid[v];
+      if (init != nullptr) r.seed = init[v];
+      if constexpr (kMin) r.old = values[v];
+    }
+    return r;
+  }
+  __device__ __forceinline__ void store(int v, Row r, T part) const {
+    const T acc = init != nullptr ? M::fold(r.seed, part) : part;
+    if constexpr (kMin) {
+      const int now = r.ok ? min(r.old, acc) : r.old;
+      new_out[v] = now;
+      chg_out[v] = r.ok && now != r.old;
+    } else {
+      new_out[v] = r.ok ? __fadd_rn(base, __fmul_rn(damping, acc)) : 0.0f;
+      chg_out[v] = r.ok;
+    }
+  }
+};
+
+// One warp per group of kWarp consecutive rows.  The group's edges
 // [gs, ge) are one contiguous range of dst; the warp streams it in
 // batches of kBatch edges, lane j holding the kPer consecutive edges
 // b + kPer j .. (16-byte loads where four lie inside the range and are
@@ -116,18 +157,17 @@ __device__ __forceinline__ typename M::T reduce_row(
 //      batch), so no atomics and a fixed order.
 // A row longer than a batch (a hub) spans several batches and is folded
 // batch by batch in edge order by the same warp.  At the end lane r
-// writes row r's result: one coalesced store per group.
+// hands row r's fold to the epilogue E.
 constexpr int kPer = 8;   // consecutive edges a lane holds (4 and 16: slower)
 constexpr int kBatch = kPer * kWarp;
 constexpr int kReduceWarps = 8;
 
-template <class M>
+template <class M, class E>
 __global__ void __launch_bounds__(kReduceWarps * kWarp)
 reduce_group_kernel(const long long* __restrict__ row_ptr,
                     const int* __restrict__ dst,
-                    const typename M::T* __restrict__ send,
-                    const typename M::T* __restrict__ init,
-                    typename M::T* __restrict__ out, int rows, int bias) {
+                    const typename M::T* __restrict__ send, E epi, int rows,
+                    int bias) {
   using T = typename M::T;
   __shared__ long long s_off[kReduceWarps][kWarp + 1];
   __shared__ T s_acc[kReduceWarps][kWarp];
@@ -140,6 +180,7 @@ reduce_group_kernel(const long long* __restrict__ row_ptr,
        g += gridDim.x * kReduceWarps) {
     const int base = g * kWarp;
     const int n = min(kWarp, rows - base);
+    const typename E::Row mine = epi.load(base + lane, lane < n);
     // row_ptr[base .. base + n], one coalesced load; lanes past the
     // group's last row see empty rows at its end
     const long long lo = row_ptr[base + min(lane, n)];
@@ -150,7 +191,7 @@ reduce_group_kernel(const long long* __restrict__ row_ptr,
     const long long gs = __shfl_sync(kFull, lo, 0);
     const long long ge = __shfl_sync(kFull, hi, kWarp - 1);
     __syncwarp();
-    for (long long b = gs & ~3LL; b < ge; b += kBatch) {
+    for (long long b = gs & ~3LL; gs < ge && b < ge; b += kBatch) {
       const long long e0 = b + kPer * lane;
       int dv[kPer];
 #pragma unroll
@@ -215,61 +256,33 @@ reduce_group_kernel(const long long* __restrict__ row_ptr,
       if (tail >= 0 && !continues) acc[tail] = M::fold(acc[tail], carry);
       __syncwarp();
     }
-    if (lane < n) {
-      const T a = acc[lane];
-      out[base + lane] = init != nullptr ? M::fold(init[base + lane], a) : a;
-    }
+    if (lane < n) epi.store(base + lane, mine, acc[lane]);
     __syncwarp();
   }
 }
 
-template <class M>
-__global__ void combine_kernel(const long long* __restrict__ row_ptr,
-                               const int* __restrict__ dst,
-                               const typename M::T* __restrict__ send,
-                               const typename M::T* __restrict__ values,
-                               const bool* __restrict__ valid,
-                               const typename M::T* __restrict__ init,
-                               typename M::T* __restrict__ new_out,
-                               bool* __restrict__ chg_out, int rows, int bias,
-                               float base, float damping) {
-  const int lane = threadIdx.x % kWarp;
-  const int warps = blockDim.x / kWarp;
-  for (int v = blockIdx.x * warps + threadIdx.x / kWarp; v < rows;
-       v += gridDim.x * warps) {
-    const typename M::T acc = reduce_row<M>(row_ptr, dst, send, init, bias,
-                                            v, lane);
-    if (lane != 0) continue;
-    const bool ok = valid[v];
-    if constexpr (std::is_same<M, SumF32>::value) {
-      new_out[v] = ok ? __fadd_rn(base, __fmul_rn(damping, acc)) : 0.0f;
-      chg_out[v] = ok;
-    } else {
-      const int old = values[v];
-      const int now = ok ? min(old, acc) : old;
-      new_out[v] = now;
-      chg_out[v] = ok && now != old;
-    }
-  }
+template <class M, class E>
+int launch_groups(const void* row_ptr, const void* dst, const void* send,
+                  E epi, int rows, int bias, void* stream) {
+  const int threads = kReduceWarps * kWarp;
+  const int groups = (rows + kWarp - 1) / kWarp;
+  const int grid = csr::grid_for(reduce_group_kernel<M, E>, groups, threads,
+                                 0, kReduceWarps);
+  reduce_group_kernel<M, E><<<grid, threads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(row_ptr), static_cast<const int*>(dst),
+      static_cast<const typename M::T*>(send), epi, rows, bias);
+  return static_cast<int>(cudaGetLastError());
 }
-
-constexpr int kWarpsPerBlock = 8;
 
 template <class M>
 int launch_reduce(const void* row_ptr, const void* dst, const void* send,
                   const void* init, void* out, int rows, int bias,
                   void* stream) {
-  const int threads = kReduceWarps * kWarp;
-  const int groups = (rows + kWarp - 1) / kWarp;
-  const int grid = csr::grid_for(reduce_group_kernel<M>, groups, threads, 0,
-                                 kReduceWarps);
   using T = typename M::T;
-  reduce_group_kernel<M><<<grid, threads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const long long*>(row_ptr), static_cast<const int*>(dst),
-      static_cast<const T*>(send), static_cast<const T*>(init),
-      static_cast<T*>(out), rows, bias);
-  return static_cast<int>(cudaGetLastError());
+  const ReduceEpilogue<M> epi{static_cast<const T*>(init),
+                              static_cast<T*>(out)};
+  return launch_groups<M>(row_ptr, dst, send, epi, rows, bias, stream);
 }
 
 template <class M>
@@ -277,17 +290,12 @@ int launch_combine(const void* row_ptr, const void* dst, const void* send,
                    const void* values, const void* valid, const void* init,
                    void* new_out, void* chg_out, int rows, int bias,
                    float base, float damping, void* stream) {
-  const int threads = kWarpsPerBlock * kWarp;
-  const int grid = csr::grid_for(combine_kernel<M>, rows, threads, 0,
-                                 kWarpsPerBlock);
   using T = typename M::T;
-  combine_kernel<M><<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const long long*>(row_ptr), static_cast<const int*>(dst),
-      static_cast<const T*>(send), static_cast<const T*>(values),
-      static_cast<const bool*>(valid), static_cast<const T*>(init),
-      static_cast<T*>(new_out), static_cast<bool*>(chg_out), rows, bias, base,
-      damping);
-  return static_cast<int>(cudaGetLastError());
+  const CombineEpilogue<M> epi{
+      static_cast<const T*>(init), static_cast<const T*>(values),
+      static_cast<const bool*>(valid), static_cast<T*>(new_out),
+      static_cast<bool*>(chg_out), base, damping};
+  return launch_groups<M>(row_ptr, dst, send, epi, rows, bias, stream);
 }
 
 }  // namespace

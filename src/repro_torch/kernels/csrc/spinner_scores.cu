@@ -49,34 +49,39 @@
 // the interior K2 pass plus the seeded K1 pass move the partial twice more
 // than one K1 pass over the whole shard would.  The frontier variant must
 // read the (V,) mask, labels and three outputs for every row but row_ptr,
-// edges, degree and noise only for the active rows.  The label gather (lookup[dst[e]], 4 B per edge from a
-// random row) is the access that cannot coalesce; at the main path's 4 M
-// vertices the label vector (16.8 MB) fits in the 50 MB L2.
+// edges, degree and noise only for the active rows.  The label gather
+// (lookup[dst[e]], 4 B per edge from a random row) is the access that
+// cannot coalesce; at the main path's 4 M vertices the label vector
+// (16.8 MB) fits in the 50 MB L2.
 //
-// K2 (spinner_scores_kernel) is the first design: one warp per row, lanes
-// striding over the row's edges, an atomicAdd per edge into the warp's
-// k-float score row.  K1 (fused_update_kernel) is redesigned for bytes in
-// flight and for converged labels, where one warp per row had all 32
-// lanes add into one shared address: a warp owns a group of up to 32
-// consecutive rows (see "K1: row groups" below), streams their one
-// contiguous edge range with 16-byte loads of dst and w, four consecutive
-// entries a lane, starts every label gather of a batch before adding any,
-// sums a lane's entries by (row, label) as integers before one add per
-// run, copies the group's noise (and seed) rows into shared memory with
-// cp.async while the edges stream, runs the epilogue a lane per row, and
-// writes best, tot_best and tot_cur with one coalesced store each.  The
-// score matrix never reaches device memory, and M(l) is summed per label
-// across the warp, then flushed once per block.
+// Both kernels are built for bytes in flight and for converged labels,
+// where one warp per row (their first design) had all 32 lanes add into
+// one shared address: a warp owns a group of consecutive rows (see "row
+// groups" below), reads their row pointers with one coalesced load,
+// streams their one contiguous entry range with 16-byte loads of dst and
+// w, four consecutive entries a lane, starts every label gather of a
+// batch before adding any, and sums a lane's entries by (row, label)
+// before one shared-memory add per run (fold_segment).  K2
+// (spinner_scores_kernel) then writes the group's score rows to the
+// (V, k) output in order, each store instruction covering 32 consecutive
+// floats.  K1 (fused_update_kernel) also copies the group's noise (and
+// seed) rows into shared memory with cp.async while the edges stream,
+// runs the epilogue a lane per row, and writes best, tot_best and tot_cur
+// with one coalesced store each: the score matrix never reaches device
+// memory, and M(l) is summed per label across the warp, then flushed once
+// per block.
 //
-// Exactness: the Eq. 3 weights are 1 or 2, so every score sum is an exact
-// integer in f32 and any order of atomics gives the same bits as the
-// scatter-add reference.  The epilogue keeps the reference's association,
-// total = s / max(deg, 1) - pen and x = (total + noise) + bonus, with IEEE
-// division and no contraction (built with -fmad=false, never fast-math),
-// and the argmax takes the FIRST maximum as jnp.argmax / torch.argmax do.
-// M(l) sums integer degrees (or ones) below 2^24, so its atomics are exact.
-// K1 sums weights and degrees as int32 within a warp (they are integers)
-// before adding the sums as floats.
+// Exactness: the weights are floats and every kernel sums them as floats
+// (IEEE adds, no contraction).  A sum of weights that are multiples of a
+// power of two (the Eq. 3 weights 1 and 2, or halves) is exact below 2^24
+// units in float32, so any order of adds gives the same bits as the
+// scatter-add reference; other weights round in the kernels' own order,
+// which the tests allow for.  The epilogue keeps the reference's
+// association, total = s / max(deg, 1) - pen and x = (total + noise) +
+// bonus, with IEEE division and no contraction (built with -fmad=false,
+// never fast-math), and the argmax takes the FIRST maximum as jnp.argmax /
+// torch.argmax do.  M(l) adds the moving rows' degrees (or ones) of one
+// label in lane order, then per block, then per grid.
 //
 // Each C entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() so a refused launch is reported.
@@ -92,65 +97,46 @@ namespace {
 using csr::kFull;
 using csr::kWarp;
 
-// s[v, :] += over the row's edges, into the warp's shared slice `acc`.
-// Weight-0 entries (bucket padding) are skipped: they add nothing.
-__device__ __forceinline__ void accumulate_row(
-    const long long* __restrict__ row_ptr, const int* __restrict__ dst,
-    const float* __restrict__ w, const int* __restrict__ lookup, float* acc,
-    int v, int lane) {
-  const long long end = row_ptr[v + 1];
-  for (long long e = row_ptr[v] + lane; e < end; e += kWarp) {
-    const float we = w[e];
-    if (we != 0.0f) atomicAdd(&acc[lookup[dst[e]]], we);
-  }
-}
-
-__global__ void spinner_scores_kernel(
-    const long long* __restrict__ row_ptr, const int* __restrict__ dst,
-    const float* __restrict__ w, const int* __restrict__ lookup,
-    float* __restrict__ out, int num_vertices, int k) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x % kWarp;
-  const int warp = threadIdx.x / kWarp;
-  const int warps = blockDim.x / kWarp;
-  float* acc = smem + warp * k;
-  for (int v = blockIdx.x * warps + warp; v < num_vertices;
-       v += gridDim.x * warps) {
-    for (int l = lane; l < k; l += kWarp) acc[l] = 0.0f;
-    __syncwarp();
-    accumulate_row(row_ptr, dst, w, lookup, acc, v, lane);
-    __syncwarp();
-    float* row = out + static_cast<size_t>(v) * k;
-    for (int l = lane; l < k; l += kWarp) row[l] = acc[l];
-    __syncwarp();
-  }
-}
-
 // Eq. 8's total s / max(deg, 1) - pen, IEEE division.  A zero score
-// skips the division: 0 / denom is +0 for denom >= 1 (the scores are
-// integer sums, never -0), so the total is +0 - pen.
+// skips the division: 0 / denom is +0 for denom >= 1 (a score starts at
+// +0 and adds nonzero weights, so it is never -0), so the total is
+// +0 - pen.
 __device__ __forceinline__ float eq8_total(float s, float denom, float pen) {
   if (s == 0.0f) return __fsub_rn(0.0f, pen);
   return __fsub_rn(__fdiv_rn(s, denom), pen);
 }
 
-// ---- K1: row groups ------------------------------------------------------
+// ---- row groups ----------------------------------------------------------
 // A warp owns a group of `rows` consecutive rows (up to 32; fewer as k
-// grows, down to one).  Its shared memory holds, for the group's
-// selected rows (every row; in the frontier form the active ones), the
-// score rows, the noise rows and in the seeded form the seed rows, each
-// row `ks = k | 1` floats apart (an odd stride, so the epilogue's lane per
-// row hits 32 distinct banks); then off (33 int64), beg (32 int64) and
-// sel (32 int).  A block adds pen and its M(l) partial (k floats each).
-// spinner_scores.py's `fused_layout` reckons the same bytes.
+// grows, down to one).  Its shared memory holds off (33 int64) and the
+// group's score rows, each row `ks = k | 1` floats apart (an odd stride,
+// so K1's epilogue, a lane per row, hits 32 distinct banks).  K2 holds
+// nothing else.  K1 also holds, for the group's selected rows (every row;
+// in the frontier form the active ones), the noise rows and in the seeded
+// form the seed rows, then beg (32 int64) and sel (32 int); a K1 block
+// adds pen and its M(l) partial (k floats each).  spinner_scores.py's
+// `scores_layout` and `fused_layout` reckon the same bytes.
 constexpr int kUnroll = 4;  // the epilogue's column loop (8: 1% faster,
                             // 72 registers in one form)
 constexpr int kPer = 4;                 // consecutive entries a lane holds
-constexpr int kGroupBytes = 12672;     // a warp's float buffers, at most
+constexpr int kGroupBytes = 12672;     // a K1 warp's float buffers, at most
 constexpr int kWarpFixedBytes = 656;   // 264 + 256 + 128, rounded to 16
+constexpr int kScoreGroupBytes = 8448;  // a K2 warp's score rows, at most
+constexpr int kScoreFixedBytes = 272;   // off: 264, rounded to 16
 constexpr int kMaxSmem = 232448;       // 227 KB, a block's dynamic limit
+constexpr int kStaticSmem = 48 * 1024;  // above it, opt in per kernel
 
 __host__ __device__ inline int row_stride(int k) { return k | 1; }
+
+// K2's rows per group: as many as kScoreGroupBytes holds, 1 to a warp
+__host__ __device__ inline int score_rows(int k) {
+  const int r = kScoreGroupBytes / (4 * row_stride(k));
+  return r < 1 ? 1 : (r > kWarp ? kWarp : r);
+}
+
+__host__ __device__ inline int score_warp_bytes(int k) {
+  return kScoreFixedBytes + ((score_rows(k) * row_stride(k) * 4 + 15) & ~15);
+}
 
 template <bool kSeeded>
 __host__ __device__ inline int fused_bufs() { return kSeeded ? 3 : 2; }
@@ -210,11 +196,11 @@ __device__ __forceinline__ void copy_rows(float* buf,
 // laid end to end (a prefix sum of their lengths in off, their starts in
 // beg) and lane j holds four consecutive entries of that virtual stream.
 // Every label gather of a batch is started before any is added.  A lane
-// sums its own consecutive entries by (row, label) as integers (the
-// weights are integers, so every sum is exact) and adds each run once, so
-// converged labels cost about one shared-memory add per lane and batch,
-// not one per entry.  (Aggregating the lanes' last runs as well, by
-// __match_any_sync and __reduce_add_sync, measured slower on the H100.)
+// sums its own consecutive entries by (row, label) in entry order, as
+// floats, and adds each run once, so converged labels cost about one
+// shared-memory add per lane and batch, not one per entry.  (Aggregating
+// the lanes' last runs as well, by __match_any_sync and __reduce_add_sync,
+// measured slower on the H100.)
 template <bool kFrontier>
 __device__ __forceinline__ void fold_segment(
     const long long* __restrict__ rp, const int* __restrict__ dst,
@@ -285,21 +271,68 @@ __device__ __forceinline__ void fold_segment(
 #pragma unroll
     for (int q = 0; q < kPer; ++q)
       lab[q] = d[q] >= 0 && we[q] != 0.0f ? __ldg(lookup + d[q]) : -1;
-    int key = -1, sum = 0;
+    int key = -1;
+    float sum = 0.0f;
 #pragma unroll
     for (int q = 0; q < kPer; ++q) {
       if (lab[q] < 0) continue;            // outside the range, or weight 0
       const int kq = r[q] * ks + lab[q];
       if (kq != key) {
-        if (key >= 0) atomicAdd(acc + key, static_cast<float>(sum));
+        if (key >= 0) atomicAdd(acc + key, sum);
         key = kq;
-        sum = 0;
+        sum = 0.0f;
       }
-      sum += __float2int_rn(we[q]);
+      sum = __fadd_rn(sum, we[q]);
     }
-    if (key >= 0) atomicAdd(acc + key, static_cast<float>(sum));
+    if (key >= 0) atomicAdd(acc + key, sum);
   }
   __syncwarp();
+}
+
+// K2: the dense (V, k) score matrix, a group of score_rows(k) rows a warp
+// (grid-stride).  The warp zeroes the group's score rows, folds the
+// group's entries into them, then writes them to out[base * k ..], which
+// is contiguous: element t of the group (row t / k, column t % k) goes
+// from lane t % 32, so each store instruction covers 32 consecutive
+// floats.  The (row, column) of a lane's next element is advanced by the
+// warp's stride instead of dividing again.
+__global__ void spinner_scores_kernel(
+    const long long* __restrict__ row_ptr, const int* __restrict__ dst,
+    const float* __restrict__ w, const int* __restrict__ lookup,
+    float* __restrict__ out, int num_vertices, int k) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
+  const int warps = blockDim.x / kWarp;
+  const int rows = score_rows(k);
+  const int ks = row_stride(k);
+  unsigned char* mine =
+      smem_raw + static_cast<size_t>(warp) * score_warp_bytes(k);
+  long long* off = reinterpret_cast<long long*>(mine);          // 33
+  float* acc = reinterpret_cast<float*>(mine + kScoreFixedBytes);
+  const int step_i = kWarp / k, step_j = kWarp % k;
+  const int lane_i = lane / k, lane_j = lane % k;
+  const int groups = (num_vertices + rows - 1) / rows;
+  for (int g = blockIdx.x * warps + warp; g < groups;
+       g += gridDim.x * warps) {
+    const int base = g * rows;
+    const int n = min(rows, num_vertices - base);
+    for (int t = lane; t < n * ks; t += kWarp) acc[t] = 0.0f;
+    fold_segment<false>(row_ptr, dst, w, lookup, acc, ks, off, nullptr,
+                        nullptr, base, n, lane);
+    float* gout = out + static_cast<size_t>(base) * k;
+    int i = lane_i, j = lane_j;
+    for (int t = lane; t < n * k; t += kWarp) {
+      gout[t] = acc[i * ks + j];
+      i += step_i;
+      j += step_j;
+      if (j >= k) {
+        j -= k;
+        ++i;
+      }
+    }
+    __syncwarp();   // every lane is done with the group's rows
+  }
 }
 
 // kFrontier: `active` is the (V,) real & active mask (1 byte a row); rows
@@ -384,7 +417,8 @@ __global__ void fused_update_kernel(
       cp_async_wait_all();
       __syncwarp();
 
-      int move = -1, mass = 0;   // this lane's row's M(l) label and mass
+      int move = -1;   // this lane's row's M(l) label and mass
+      float mass = 0.0f;
       const int li = kFrontier ? sel[lane < n_sel ? lane : 0] : lane;
       const int cur = __shfl_sync(kFull, cur_lane, li);
       const float deg = __shfl_sync(kFull, deg_lane, li);
@@ -418,16 +452,21 @@ __global__ void fused_update_kernel(
         // a frontier row that got here is active, hence real
         if ((kFrontier || base + li < num_real) && bidx != cur) {
           move = bidx;
-          mass = degree_weighted ? __float2int_rn(deg) : 1;
+          mass = degree_weighted ? deg : 1.0f;
         }
       }
-      // M(l): the lanes moving to one label sum their (integer) degrees
-      // and its lowest lane adds the sum, one shared-memory add per label
+      // M(l): the lowest of the lanes moving to one label adds their
+      // masses in lane order (through beg, free after the folds), then
+      // makes one shared-memory add per label
       const unsigned same = __match_any_sync(kFull, move);
-      if (move >= 0) {
-        const int total = __reduce_add_sync(same, mass);
-        if (lane == __ffs(same) - 1)
-          atomicAdd(&m_block[move], static_cast<float>(total));
+      float* s_mass = reinterpret_cast<float*>(beg);
+      s_mass[lane] = mass;
+      __syncwarp();
+      if (move >= 0 && lane == __ffs(same) - 1) {
+        float total = 0.0f;
+        for (unsigned rest = same; rest != 0; rest &= rest - 1)
+          total = __fadd_rn(total, s_mass[__ffs(rest) - 1]);
+        atomicAdd(&m_block[move], total);
       }
       if (kFrontier) {   // row `lane`'s result sits on lane rank(lane)
         const int rank = __popc(mask & ((1u << lane) - 1u));
@@ -495,9 +534,19 @@ extern "C" int spinner_scores_csr(const void* row_ptr, const void* dst,
                                   void* out, int num_vertices, int k,
                                   int warps, void* stream) {
   const int threads = warps * kWarp;
-  const size_t smem = static_cast<size_t>(warps) * k * sizeof(float);
-  const int grid = csr::grid_for(spinner_scores_kernel, num_vertices,
-                                 threads, smem, warps);
+  const size_t smem = static_cast<size_t>(warps) * score_warp_bytes(k);
+  if (smem > static_cast<size_t>(kMaxSmem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > static_cast<size_t>(kStaticSmem)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        spinner_scores_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int rows = score_rows(k);
+  const int grid = csr::grid_for(spinner_scores_kernel,
+                                 (num_vertices + rows - 1) / rows, threads,
+                                 smem, warps);
   spinner_scores_kernel<<<grid, threads, smem,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const long long*>(row_ptr), static_cast<const int*>(dst),

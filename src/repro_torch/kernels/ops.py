@@ -34,8 +34,9 @@ engine's ``ShardBind`` and ``reduce_`` sums the aggregates over the ranks.
     reads no delta segment.  On CPU tensors its wrappers run the plain
     versions.
 
-All backends give bit-identical trajectories: every score sum is an exact
-integer in float32.
+All backends give bit-identical trajectories on the Eq. 3 weights (and on
+any weights whose sums are exact, such as halves): every score sum is
+then exact in float32, whatever the order.
 """
 from __future__ import annotations
 

@@ -17,9 +17,11 @@ interior segment, whose dst are local ids into the label shard).  The CPU
 path and the tests use these; on a card the wrappers in
 ``spinner_scores`` launch the kernels instead.
 
-Every score sum is an exact integer in float32 (Eq. 3 weights are 1 or
-2), so any accumulation order gives the same bits and the kernels are
-held to these versions bit for bit.
+Every score sum of the Eq. 3 weights (1 or 2) is an exact integer in
+float32, so any accumulation order gives the same bits and the kernels
+are held to these versions bit for bit; so are sums of halves.  Other
+float weights round in each side's own order, and the kernels are held
+to these versions within a tolerance there.
 
 ``pregel_reduce_ref`` / ``pregel_combine_ref`` are the Pregel message
 combine (``pregel_combine`` kernels): a segmented sum (``index_add_``) or

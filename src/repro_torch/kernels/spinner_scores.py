@@ -36,11 +36,13 @@ _SIGNATURES = {
                                                    _I, _I, _P]),
 }
 _WARPS = 8                    # warps per block
-_SMEM_FLOATS = 48 * 1024 // 4  # K2's shared memory limit (static launch)
-# K1's shared memory, as fused_rows / fused_smem in spinner_scores.cu
-# reckon it: per warp a fixed part and its float buffers (score, noise
-# and, in the seeded form, seed rows of k | 1 floats each), at most
-# _GROUP_BYTES
+# The kernels' shared memory, as score_rows / score_warp_bytes and
+# fused_rows / fused_smem in spinner_scores.cu reckon it: per warp a fixed
+# part and its float buffers of k | 1 floats a row -- K2's score rows, at
+# most _SCORE_GROUP_BYTES; K1's score, noise and, in the seeded form, seed
+# rows, at most _GROUP_BYTES
+_SCORE_GROUP_BYTES = 8448
+_SCORE_FIXED_BYTES = 272
 _GROUP_BYTES = 12672
 _WARP_FIXED_BYTES = 656
 MAX_SMEM_BYTES = 232448        # 227 KB, a block's dynamic shared memory
@@ -66,33 +68,42 @@ def _check_csr(labels, row_ptr, dst, w, k: int) -> int:
     return v
 
 
-def _warps(k: int) -> int:
-    """K2's warps per block whose score rows fit the static shared-memory
-    limit."""
-    warps = min(_WARPS, _SMEM_FLOATS // k)
+def _round16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+def _layout(k: int, bufs: int, group_bytes: int, fixed: int, head: int,
+            what: str) -> tuple:
+    """``(warps, rows, smem_bytes)`` of a row-group launch: each warp's
+    group holds ``bufs`` buffers of ``rows`` rows of ``k | 1`` floats
+    (``rows`` up to 32, as many as ``group_bytes`` holds, at least one)
+    after a ``fixed`` part; the block adds ``head`` bytes."""
+    if k < 1:
+        raise ValueError(f"k must be positive, got {k}")
+    stride = k | 1
+    rows = max(1, min(32, group_bytes // (bufs * 4 * stride)))
+    per_warp = fixed + _round16(bufs * rows * stride * 4)
+    warps = min(_WARPS, (MAX_SMEM_BYTES - head) // per_warp)
     if warps < 1:
-        raise ValueError(f"k={k} is too large for the CSR kernels' "
-                         "shared-memory score rows")
-    return warps
+        raise ValueError(f"k={k} is too large for the {what} kernel's "
+                         "shared-memory rows")
+    return warps, rows, head + warps * per_warp
+
+
+def scores_layout(k: int) -> tuple:
+    """``(warps, rows, smem_bytes)`` of a K2 launch at ``k``: the warps per
+    block, the rows of each warp's group (up to 32, down to one as k
+    grows) and the block's dynamic shared memory, which must fit
+    ``MAX_SMEM_BYTES`` (k up to 58,043); the kernel derives the same rows
+    and bytes."""
+    return _layout(k, 1, _SCORE_GROUP_BYTES, _SCORE_FIXED_BYTES, 0, "score")
 
 
 def fused_layout(k: int, seeded: bool) -> tuple:
-    """``(warps, rows, smem_bytes)`` of a K1 launch at ``k``: the warps per
-    block, the rows of each warp's group (up to 32, down to one as k
-    grows) and the block's dynamic shared memory, which must fit
-    ``MAX_SMEM_BYTES``; the kernel derives the same rows and bytes."""
-    if k < 1:
-        raise ValueError(f"k must be positive, got {k}")
-    bufs = 3 if seeded else 2
-    stride = k | 1
-    rows = max(1, min(32, _GROUP_BYTES // (bufs * 4 * stride)))
-    per_warp = _WARP_FIXED_BYTES + -(-bufs * rows * stride * 4 // 16) * 16
-    head = -(-2 * k * 4 // 16) * 16
-    warps = min(_WARPS, (MAX_SMEM_BYTES - head) // per_warp)
-    if warps < 1:
-        raise ValueError(f"k={k} is too large for the fused kernel's "
-                         "shared-memory score and noise rows")
-    return warps, rows, head + warps * per_warp
+    """``(warps, rows, smem_bytes)`` of a K1 launch at ``k``, as
+    ``scores_layout``; the block also holds pen and its M(l) partial."""
+    return _layout(k, 3 if seeded else 2, _GROUP_BYTES, _WARP_FIXED_BYTES,
+                   _round16(2 * k * 4), "fused")
 
 
 def spinner_scores(labels: torch.Tensor, row_ptr: torch.Tensor,
@@ -110,7 +121,7 @@ def spinner_scores(labels: torch.Tensor, row_ptr: torch.Tensor,
     if dev.type == "cpu":
         return ref.spinner_scores_ref(lookup, ref.csr_src(row_ptr), dst, w,
                                       v, k)
-    warps = _warps(k)
+    warps = scores_layout(k)[0]
     out = torch.empty((v, k), dtype=torch.float32, device=dev)
     if v == 0:
         return out
@@ -221,8 +232,9 @@ def fused_update_seeded(labels: torch.Tensor, row_ptr: torch.Tensor,
     ``fused_update`` whose score rows start from ``acc_init``, the (V, k)
     f32 partial of the shard's interior segment, and fold this CSR's edges
     (the frontier segment, ``dst`` indexing ``lookup``).  Equal bit for bit
-    to ``fused_update`` over the interior and frontier edges together: every
-    partial is an exact integer in float32."""
+    to ``fused_update`` over the interior and frontier edges together
+    wherever the weights' sums are exact (the Eq. 3 weights: every partial
+    is an exact integer in float32)."""
     v, _, lookup = _check_propose(labels, row_ptr, dst, w, deg_w, pen, noise,
                                   k, (), lookup)
     _check_num_real(num_real, v)

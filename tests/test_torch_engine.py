@@ -20,10 +20,13 @@ from repro.core import EngineOptions as RefOptions
 from repro.core import SpinnerConfig as RefConfig
 from repro.core import engine as ref_engine
 from repro.core import generators as ref_gen
+from repro.core import graph as ref_graph
 from repro.core import partition as ref_partition
 from repro.core.spinner import prepare_init as ref_prepare_init
 from repro_torch.convert import graph_from_reference, state_from_reference
-from repro_torch.core import EngineOptions, SpinnerConfig, engine, partition
+from repro_torch.core import (EngineOptions, SpinnerConfig, engine,
+                              generators, partition)
+from repro_torch.core import graph as port_graph
 from repro_torch.core.spinner import prepare_init
 
 REPO = Path(__file__).resolve().parents[1]
@@ -213,6 +216,42 @@ def test_state_from_export_dict(small_world):
     np.testing.assert_array_equal(state.labels.numpy(), exported["labels"])
     np.testing.assert_array_equal(state.loads.numpy(), exported["loads"])
     assert state.key == (0, 1) and int(state.iteration) == 0
+
+
+@pytest.fixture(scope="module")
+def halved_runs():
+    """``watts_strogatz(600, 8, 0.2, seed=3)`` built by each package, its
+    Eq. 3 weights halved through each package's ``_finish`` (weights 0.5
+    and 1: not integers, but every sum of them is exact in float32), and
+    the reference's XLA run on it at k = 6."""
+    def halve(finish, g):
+        return finish(g.src, g.dst, 0.5 * g.weight, g.num_vertices)
+
+    ref_g = halve(ref_graph._finish, ref_gen.watts_strogatz(600, 8, 0.2,
+                                                             seed=3))
+    port_g = halve(port_graph._finish, generators.watts_strogatz(
+        600, 8, 0.2, seed=3))
+    np.testing.assert_array_equal(port_g.weight, ref_g.weight)
+    assert not np.all(port_g.deg_w == np.round(port_g.deg_w))
+    ref = ref_partition(ref_g, RefConfig(k=6, seed=3), engine="fused",
+                        record_history=False,
+                        options=RefOptions(score_backend="xla"))
+    return port_g, ref
+
+
+@pytest.mark.parametrize("backend,fused", PORT_VARIANTS)
+def test_halved_weights_match_reference(halved_runs, backend, fused):
+    """A graph whose weights are not integers: the port's run on the CPU
+    (the cuda backend's wrappers run their plain versions there) walks the
+    reference's trajectory label for label.  The kernels themselves are
+    held to those plain versions on such weights by the card tests."""
+    g, ref = halved_runs
+    res = partition(g, SpinnerConfig(k=6, seed=3), engine="fused",
+                    record_history=False,
+                    options=EngineOptions(device="cpu", score_backend=backend,
+                                          fused_update=fused))
+    _same(res, ref)
+    assert res.iterations > 1
 
 
 def test_imports_neither_jax_nor_reference():

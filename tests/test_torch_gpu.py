@@ -10,6 +10,8 @@ The CPU tests hold the port's plain versions and CPU runs to the
 reference bit for bit; these hold the kernels and the card's runs to the
 plain versions and CPU runs, bit for bit.
 """
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -19,11 +21,14 @@ from repro_torch.apps import build_app_layout, run_app
 from repro_torch.core import (EngineOptions, SpinnerConfig, delta,
                               distributed, engine, generators, open_session,
                               partition)
+from repro_torch.core.graph import _finish
 from repro_torch.kernels import ref
+from repro_torch.kernels.ops import CudaCsrBackend
 from repro_torch.kernels.pregel_combine import pregel_combine, pregel_reduce
 from repro_torch.kernels.spinner_scores import (fused_update,
                                                 fused_update_frontier,
                                                 fused_update_seeded,
+                                                scores_layout,
                                                 spinner_scores)
 from repro_torch.launch.mesh import make_partition_mesh
 
@@ -483,3 +488,231 @@ def test_fused_groups_match_plain(cuda, k, case, labels_kind):
         want = ref.fused_propose_ref(labels, src_t, dst_t, w_t, *common,
                                      num_real, *tail, acc_init=acc_init)
         assert all(_bits_equal(a, b) for a, b in zip(got, want))
+
+
+# ---- K2 as a row-group kernel, K4 on K3's row groups, and K1 and K2 on
+# weights that are not integers.
+
+def _labels_of(kind, gen, n, k):
+    """Uniform labels, or "converged" ones: nearly all on one label."""
+    if kind == "random":
+        return gen.integers(0, k, n).astype(np.int32)
+    return np.where(gen.random(n) < 0.01, gen.integers(0, k, n),
+                    k // 2).astype(np.int32)
+
+
+K2_MAX_K = 58043     # the largest k scores_layout takes: one row, one warp
+# every shape at every k, but the 600,001-row case not at the largest k
+# (its (V, k) f32 output alone would be 139 GB)
+K2_CASES = [(k, case) for k in KS + [K2_MAX_K] for case in CASES
+            if (k, case) != (K2_MAX_K, "many_groups")]
+
+
+def test_scores_layout_limit(cuda):
+    """The largest k launches (one warp of one row, every byte of a
+    block's shared memory) and the next one is refused by the wrapper."""
+    assert scores_layout(K2_MAX_K)[:2] == (1, 1)
+    with pytest.raises(ValueError):
+        scores_layout(K2_MAX_K + 1)
+
+
+@pytest.mark.parametrize("labels_kind", ["random", "converged"])
+@pytest.mark.parametrize("k,case", K2_CASES)
+def test_score_groups_match_plain(cuda, k, case, labels_kind):
+    """K2 on each shape against the scatter-add, bit for bit: over the
+    rows' own labels (the overlap's interior half), over a lookup three
+    times longer that dst indexes (the frontier half on a shard), and both
+    halves through ``CudaCsrBackend.make_sharded_scores_split``."""
+    gen = np.random.default_rng(k + len(case))
+    rp, dst, w = _csr_case(case, gen)
+    v = rp.size - 1
+    up = (lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda))
+    labels = up(_labels_of(labels_kind, gen, v, k))
+    lookup = up(_labels_of(labels_kind, gen, 3 * v, k))
+    rp_t, dst_t, w_t = up(rp), up(dst), up(w)
+    dst_f = up(gen.integers(0, 3 * v, dst.size).astype(np.int32))
+    src = ref.csr_src(rp_t)
+    n = spinner_scores.launches
+    part = spinner_scores(labels, rp_t, dst_t, w_t, k)
+    want_part = ref.spinner_scores_ref(labels, src, dst_t, w_t, v, k)
+    assert _bits_equal(part, want_part)
+    front = spinner_scores(labels, rp_t, dst_f, w_t, k, lookup=lookup)
+    assert _bits_equal(front, ref.spinner_scores_ref(lookup, src, dst_f, w_t,
+                                                     v, k))
+    assert spinner_scores.launches == n + 2
+    interior, frontier = CudaCsrBackend().make_sharded_scores_split(k, v)
+    bind = types.SimpleNamespace(score=(rp_t, dst_t, w_t, rp_t, dst_f, w_t))
+    got = frontier(interior(labels, bind), lookup, labels, bind)
+    assert _bits_equal(got, ref.spinner_scores_ref(lookup, src, dst_f, w_t,
+                                                   v, k, init=want_part))
+
+
+@pytest.mark.parametrize("combine,update,bias", PREGEL)
+@pytest.mark.parametrize("case", CASES)
+def test_combine_groups_match_plain(cuda, case, combine, update, bias):
+    """K4 on each shape over the full CSR and over an empty frontier, with
+    and without a seed, ``valid`` False on ~30% of the rows: min bitwise
+    equal to the plain version, sum within rtol 1e-5, atol 1e-9, and every
+    output bitwise equal to itself over three launches."""
+    gen = np.random.default_rng(len(case) + 3 * bias)
+    rp, dst, _ = _csr_case(case, gen)
+    v = rp.size - 1
+    up = (lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda))
+    if combine == "sum":
+        send, values, init = (up(gen.uniform(0, 1e-3, v).astype(np.float32))
+                              for _ in range(3))
+    else:
+        send, values, init = (up(gen.integers(0, v, v).astype(np.int32))
+                              for _ in range(3))
+        send[::3] = ref.INF_I32
+        values[1::4] = ref.INF_I32
+    valid = up(gen.random(v) >= 0.3)
+    base = float(np.float32(0.15 / v))
+    empty = (torch.zeros(v + 1, dtype=torch.int64, device=cuda),
+             torch.zeros(0, dtype=torch.int32, device=cuda))
+    for (rp_t, dst_t), seed in ((c, s) for c in ((up(rp), up(dst)), empty)
+                                for s in (None, init)):
+        kw = dict(combine=combine, update=update, damping=0.85, bias=bias,
+                  acc_init=seed)
+        n = pregel_combine.launches
+        got = [pregel_combine(send, rp_t, dst_t, values, valid, base, **kw)
+               for _ in range(3)]
+        assert pregel_combine.launches == n + 3
+        for again in got[1:]:
+            assert all(_bits_equal(a, b) for a, b in zip(got[0], again))
+        want = ref.pregel_combine_ref(send, rp_t, dst_t, values, valid, base,
+                                      **kw)
+        for a, b in zip(got[0], want):
+            if combine == "min" or a.dtype == torch.bool:
+                assert _bits_equal(a, b)
+            else:
+                assert torch.allclose(a, b, rtol=1e-5, atol=1e-9)
+
+
+def _scaled_graph(n, scale):
+    """``watts_strogatz(n, ...)`` with its Eq. 3 weights times ``scale``
+    (through ``_finish``, as a caller may build it), on its padded layout
+    (weight-0 pad entries included)."""
+    ws = (generators.watts_strogatz(600, 8, 0.2, seed=3) if n == 600 else
+          generators.watts_strogatz(n, 16, 0.3, seed=1))
+    g = _finish(ws.src, ws.dst, np.float32(scale) * ws.weight, n)
+    return engine.padded_view(g, EngineOptions(device="cpu"))
+
+
+def _hold_float(got, want, x, valid, labels, deg, dyadic, weighted):
+    """K1's outputs against the plain version's.  Weights that are
+    multiples of 0.5 sum exactly in any order: every output bitwise equal.
+    Other weights round in the kernel's order: ``best`` equal wherever the
+    plain version's top two of ``x = total + noise + bonus`` differ by more
+    than 1e-5 relative; ``tot_best`` / ``tot_cur`` within rtol 1e-6 and
+    atol 1e-6 (a total is s / deg - pen, a difference of terms of order 1,
+    so its error is relative to those terms) where ``best`` agrees; M(l)
+    within rtol 1e-6 of a float64 sum over the kernel's own proposals (the
+    plain version's own float32 sum of ~3,000 masses a label strays
+    1.6e-6 from it, so it is no yardstick at that tolerance)."""
+    if dyadic:
+        assert all(_bits_equal(a, b) for a, b in zip(got, want))
+        return
+    top = x.topk(2, dim=1).values
+    clear = (top[:, 0] - top[:, 1]) > 1e-5 * top[:, 0].abs()
+    assert int(clear.sum()) > 0.5 * clear.numel()
+    assert torch.equal(got[0][clear], want[0][clear])
+    same = got[0] == want[0]
+    for a, b in zip(got[1:3], want[1:3]):
+        assert torch.allclose(a[same], b[same], rtol=1e-6, atol=1e-6)
+    moving = (got[0] != labels) & valid
+    mass = (deg if weighted else torch.ones_like(deg)).double()
+    m64 = torch.zeros(got[3].numel(), dtype=torch.float64,
+                      device=deg.device).index_add_(
+        0, got[0].long(), torch.where(moving, mass, 0.0))
+    assert torch.allclose(got[3].double(), m64, rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.parametrize("scale", [0.5, 0.3])
+@pytest.mark.parametrize("n", [600, 20_000])
+def test_float_weights_match_plain(cuda, n, scale):
+    """K1's three forms and K2 sum the weights they are given: on the
+    halved Eq. 3 weights (0.5 and 1) bitwise equal to their plain
+    versions, on weights times 0.3 within the tolerances of
+    ``_hold_float``; K2 bitwise on 0.5, within rtol 1e-6 on 0.3."""
+    g, num_real = _scaled_graph(n, scale)
+    csr = g.to_device(cuda)
+    v, k = g.num_vertices, 6
+    dyadic = scale == 0.5
+    gen = np.random.default_rng(n)
+    labels = torch.from_numpy(gen.integers(0, k, v).astype(np.int32)
+                              ).to(cuda)
+    loads = torch.zeros(k, device=cuda).index_add_(0, labels.long(),
+                                                   csr.deg_w)
+    pen = loads / torch.tensor(1.05 * g.total_weight / k, device=cuda)
+    noise = rng.uniform(rng.PRNGKey(n), (v, k), 0.0, 1e-7, device=cuda)
+    bonus = torch.nn.functional.one_hot(labels.long(), k).to(
+        torch.float32) * float(np.float32(1e-6))
+    real = torch.arange(v, device=cuda) < num_real
+    act = real & torch.from_numpy(gen.random(v) < 0.3).to(cuda)
+    base = (csr.row_ptr, csr.dst, csr.weight)
+
+    def x_of(scores):
+        total = scores / torch.clamp(csr.deg_w, min=1.0)[:, None] - pen
+        return total + noise + bonus
+
+    scores = spinner_scores(labels, *base, k)
+    plain_scores = ref.spinner_scores_ref(labels, csr.src, csr.dst,
+                                          csr.weight, v, k)
+    if dyadic:
+        assert _bits_equal(scores, plain_scores)
+    else:
+        assert torch.allclose(scores, plain_scores, rtol=1e-6, atol=0.0)
+    x = x_of(plain_scores)
+    for weighted in (True, False):
+        tail = (k, 1e-6, weighted)
+        got = fused_update(labels, *base, csr.deg_w, pen, noise, num_real,
+                           *tail)
+        want = ref.fused_propose_ref(labels, csr.src, csr.dst, csr.weight,
+                                     csr.deg_w, pen, noise, num_real, *tail)
+        _hold_float(got, want, x, real, labels, csr.deg_w, dyadic, weighted)
+        got = fused_update_frontier(labels, *base, csr.deg_w, pen, noise,
+                                    act, *tail)
+        want = ref.frontier_propose_ref(labels, csr.src, csr.dst, csr.weight,
+                                        csr.deg_w, pen, noise, act, *tail)
+        _hold_float(got, want, x, act, labels, csr.deg_w, dyadic, weighted)
+        for rank in range(2):   # the overlap form on a 2-way layout
+            sh = distributed.rank_shard(g, 2, rank, cuda)
+            vl, off = sh.v_local, sh.offset
+            lab = labels[off:off + vl].contiguous()
+            rp_i, _, d_i, w_i = sh.interior
+            rp_f, src_f, d_f, w_f = sh.frontier
+            partial = spinner_scores(lab, rp_i, d_i, w_i, k)
+            common = (sh.deg_w, pen, noise[off:off + vl].contiguous(),
+                      min(max(num_real - off, 0), vl), *tail)
+            got = fused_update_seeded(lab, rp_f, d_f, w_f, *common, partial,
+                                      lookup=labels)
+            want = ref.fused_propose_ref(lab, src_f, d_f, w_f, *common,
+                                         lookup=labels, acc_init=partial)
+            _hold_float(got, want, x[off:off + vl], real[off:off + vl], lab,
+                        sh.deg_w, dyadic, weighted)
+
+
+def test_halved_weights_partition_matches_cpu(cuda):
+    """``partition`` on the halved weights of ``watts_strogatz(600, 8,
+    0.2, seed=3)`` at k = 6 (the graph the CPU tests hold to the
+    reference): the card's fused kernel, split kernel and scatter runs
+    equal the CPU run label for label."""
+    ws = generators.watts_strogatz(600, 8, 0.2, seed=3)
+    g = _finish(ws.src, ws.dst, 0.5 * ws.weight, 600)
+    cfg = SpinnerConfig(k=6, seed=3)
+    want = partition(g, cfg, engine="fused", record_history=False,
+                     device="cpu")
+    for backend, fused in (("cuda", "on"), ("cuda", "off"),
+                           ("torch", "off")):
+        fused_update.launches = spinner_scores.launches = 0
+        got = partition(g, cfg, engine="fused", record_history=False,
+                        options=EngineOptions(device=cuda,
+                                              score_backend=backend,
+                                              fused_update=fused))
+        np.testing.assert_array_equal(got.labels, want.labels)
+        np.testing.assert_array_equal(got.loads, want.loads)
+        assert (got.iterations, got.halted) == (want.iterations, want.halted)
+        if backend == "cuda":
+            assert fused_update.launches + spinner_scores.launches \
+                == got.iterations

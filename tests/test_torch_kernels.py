@@ -175,3 +175,22 @@ def test_fused_layout_fits_shared_memory(seeded):
     assert wrappers.fused_layout(32, False)[:2] == (8, 32)
     with pytest.raises(ValueError):
         wrappers.fused_layout(0, seeded)
+
+
+def test_scores_layout_fits_shared_memory():
+    """Every k the K2 wrapper took before the row-group design (up to
+    12,288, the old static shared-memory limit) still has a layout: 1 to 8
+    warps, 1 to 32 rows a group (32 at the main path's k = 32, fewer as k
+    grows), a block's shared memory within 227 KB; the new limit is
+    k = 58,043, one row of one warp."""
+    last_rows = 32
+    for k in range(1, 12289):
+        warps, rows, smem = wrappers.scores_layout(k)
+        assert 1 <= warps <= 8 and 1 <= rows <= last_rows
+        assert smem <= wrappers.MAX_SMEM_BYTES
+        last_rows = rows
+    assert wrappers.scores_layout(32) == (8, 32, 8 * (272 + 32 * 33 * 4))
+    assert wrappers.scores_layout(58043) == (1, 1, wrappers.MAX_SMEM_BYTES)
+    for k in (0, 58044):
+        with pytest.raises(ValueError):
+            wrappers.scores_layout(k)
