@@ -68,6 +68,22 @@ about 128 M directed CSR entries, k = 32):
       into draws / interior / exchange / seeded kernel / epilogue; (h3) on
       the medium graph, every exchange plan x overlap on/off x score
       backend identical to (d)'s run;
+  (i) the Pregel applications on a mesh: (i1) the full graph's 4-way app
+      layout built on the card for (c)'s labels and the hash labels; on
+      each rank K3 over its interior, then K4 over its (non-empty)
+      frontier seeded by K3's partial, reading the whole send vector, for
+      PageRank's sum and WCC's min -- min bitwise, sum within rtol 1e-5
+      and bitwise repeatable -- timed beside their bounds; each
+      placement's halo counted on the card and the wire bytes a PageRank
+      superstep would move under the halo plan, Spinner's below hash's;
+      (i2) ``run_app(mesh=make_partition_mesh(1))`` of the full graph,
+      PageRank/WCC/BFS with the allgather plan, overlap on and off,
+      identical to (f)'s runs with nothing on the wire and K3/K4 launched
+      once per superstep, and one superstep split into send / K3 /
+      exchange / K4; (i3) on the medium graph every workload x plan x
+      overlap x combine identical to the single-device run, and the
+      4-way layout's halo counted on the card equal to
+      ``HaloPlan.true_halo``;
   (e) each kernel's achieved bytes/s (the bytes its bound counts over its
       measured time) beside its bound, then one JSON line describing each
       kernel.
@@ -447,10 +463,13 @@ def hash_labels(v: int, k: int) -> np.ndarray:
     return (np.arange(v, dtype=np.int64) * 2654435761 % k).astype(np.int32)
 
 
-def pregel_bound(rp, dst, combine: str, seeded: bool, update: bool) -> dict:
+def pregel_bound(rp, dst, combine: str, seeded: bool, update: bool,
+                 lookup_read: int = None) -> dict:
     """The least time of one combine-kernel call on this CSR: the bytes
     it must move (row_ptr 8 B/row, dst 4 B/edge, the send vector once --
-    not read at all when there are no edges --, the seed, and for the
+    or its ``lookup_read`` entries the edges reference, where the lookup
+    is not the rows' own vector; not read at all when there are no
+    edges --, the seed, and for the
     update the valid mask and the min's values in, the (rows,) outputs
     out) over the memory rate, against its operations (an add or a min
     per edge) over the float32 rate.  ``bytes_with_gather`` counts the
@@ -461,7 +480,8 @@ def pregel_bound(rp, dst, combine: str, seeded: bool, update: bool) -> dict:
         fixed += rows * 4
     if update:
         fixed += rows + rows + (rows * 4 if combine == "min" else 0)
-    nbytes = fixed + (rows * 4 if edges else 0)
+    nbytes = fixed + ((rows if lookup_read is None else lookup_read) * 4
+                      if edges else 0)
     ops = edges * (1 if combine == "sum" else 2) + rows * (2 if update else 1)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / F32_OPS_PER_S * 1e3
@@ -706,6 +726,8 @@ def phase_apps(graph, labels: np.ndarray, dev, report: dict) -> None:
               flush=True)
     report["pregel_reduce_csr"]["launches"] = launches
     report["pregel_combine_csr"]["launches"] = launches
+    report["app_results"] = {wl: r for (wl, name), (r, _) in runs.items()
+                             if name == "spinner"}
     superstep_split(build_app_layout(graph, labels, dev), dev, report)
     report["apps"] = {f"{wl}/{name}": dict(
         supersteps=r.supersteps, wall_s=wall,
@@ -724,13 +746,15 @@ def superstep_split(lay, dev, report: dict) -> None:
     split = {}
     for wl in ("pagerank", "wcc"):
         spec = APPS[wl]
-        step = make_superstep(spec, lay, *COMBINE_BACKENDS["cuda"], 0.85)
+        step = make_superstep(spec, lay.shard(0), *COMBINE_BACKENDS["cuda"],
+                              0.85, lay.num_real)
         values = torch.from_numpy(init_values(spec, lay)).to(dev)
         changed = torch.from_numpy(init_active(spec, lay)).to(dev)
         state = AppState(values=values, changed=changed, step=0,
                          active=int(changed.sum()),
                          msgs=torch.zeros((), device=dev))
-        parts = {"superstep_ms": time_ms(lambda: step(state), reps=20),
+        parts = {"superstep_ms": time_ms(lambda: step(state, None),
+                                         reps=20),
                  "msgs_ms": time_ms(lambda: state.msgs + (
                      lay.deg_cnt * changed.to(torch.float32)).sum(),
                      reps=20)}
@@ -1305,6 +1329,254 @@ def phase_sharded_medium(g, base: np.ndarray, dev, report: dict) -> None:
           f"{time.perf_counter() - t0:.3f}s", flush=True)
 
 
+def phase_apps_mesh_kernels(graph, labels: np.ndarray, dev,
+                            report: dict) -> None:
+    """(i1) K3 then K4 on each rank of the full graph's 4-way app layout,
+    for (c)'s Spinner labels and the hash labels: K3 over the rank's
+    interior, K4 over its frontier (the whole send vector as the lookup,
+    the allgather/delta index) seeded by K3's partial, for PageRank's sum
+    and WCC's min; held to the plain versions and timed beside their
+    bounds; the halo each placement would exchange, counted on the card."""
+    from repro_torch.apps import APPS, build_app_layout, init_values
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pregel_combine import (pregel_combine,
+                                                    pregel_reduce)
+
+    ndev = 4
+    placements = {"spinner": labels,
+                  "hash": hash_labels(graph.num_vertices, K)}
+    out, errs = {}, {"pregel_reduce_csr": 0.0, "pregel_combine_csr": 0.0}
+
+    def hold(name, combine, got, again, want):
+        torch.cuda.synchronize()
+        for a, b, c in zip(got, again, want):
+            check(bits_equal(a, b), f"(i1) {name} ({combine}) differs "
+                  f"between two launches")
+            if combine == "min" or a.dtype == torch.bool:
+                check(bits_equal(a, c), f"(i1) {name} ({combine}) != plain")
+            else:
+                check(bool(torch.allclose(a, c, rtol=1e-5, atol=1e-9)),
+                      f"(i1) {name} ({combine}) outside rtol 1e-5 of plain")
+        errs[name] = max(errs[name], max_abs_err(zip(got, want)))
+
+    for name, lab in placements.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lay = build_app_layout(graph, lab, dev, ndev=ndev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        vl, base = lay.v_per_dev, float(np.float32(0.15 / lay.num_real))
+        pr0 = torch.from_numpy(init_values(APPS["pagerank"], lay)).to(dev)
+        wcc0 = torch.from_numpy(init_values(APPS["wcc"], lay)).to(dev)
+        cases = (("sum", "pagerank", pr0 / torch.clamp(lay.deg_cnt, min=1.0),
+                  pr0), ("min", "min", wcc0, wcc0))
+        shards = []
+        for rank in range(ndev):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sh = lay.shard(rank)
+            torch.cuda.synchronize()
+            rows = slice(sh.offset, sh.offset + vl)
+            n_i, n_f = sh.interior[1].numel(), sh.frontier[1].numel()
+            reads_i = int(torch.unique(sh.interior[1]).numel())
+            reads_f = int(torch.unique(sh.frontier[1]).numel())
+            row = dict(rank=rank, rows=vl, interior_edges=n_i,
+                       frontier_edges=n_f,
+                       frontier_fraction=n_f / max(n_i + n_f, 1),
+                       shard_build_s=time.perf_counter() - t0)
+            check(n_f > 0, f"(i1) {name} rank {rank}: empty frontier")
+            for combine, update, send, values in cases:
+                kw = dict(combine=combine)
+                ckw = dict(kw, update=update, damping=0.85)
+                own = send[rows]
+
+                def interior():
+                    return pregel_reduce(own, *sh.interior, **kw)
+
+                partial = interior()
+                hold("pregel_reduce_csr", combine, (partial,), (interior(),),
+                     (ref.pregel_reduce_ref(own, *sh.interior, **kw),))
+                args = (send, *sh.frontier, values[rows], sh.valid, base)
+
+                def frontier():
+                    return pregel_combine(*args, acc_init=partial, **ckw)
+
+                hold("pregel_combine_csr", combine, frontier(), frontier(),
+                     ref.pregel_combine_ref(*args, acc_init=partial, **ckw))
+                sfx = "" if combine == "sum" else "_min"
+                row.update({
+                    "k3_ms" + sfx: time_ms(interior, reps=20),
+                    "k4_ms" + sfx: time_ms(frontier, reps=20),
+                    "k3_plain_ms" + sfx: time_ms(
+                        lambda: ref.pregel_reduce_ref(own, *sh.interior,
+                                                      **kw), reps=3,
+                        warmup=1),
+                    "k4_plain_ms" + sfx: time_ms(
+                        lambda: ref.pregel_combine_ref(
+                            *args, acc_init=partial, **ckw), reps=3,
+                        warmup=1),
+                    "k3_bound_ms" + sfx: pregel_bound(
+                        *sh.interior, combine, False, False,
+                        lookup_read=reads_i)["bound_ms"],
+                    "k4_bound_ms" + sfx: pregel_bound(
+                        *sh.frontier, combine, True, True,
+                        lookup_read=reads_f)["bound_ms"]})
+                del partial
+            shards.append(row)
+            print(f"(i1) {name} rank {rank}/{ndev}: {vl} rows, {n_i} interior "
+                  f"+ {n_f} frontier entries ({row['frontier_fraction']:.4f}"
+                  f"), shard built in {row['shard_build_s']:.3f}s; K3 interior"
+                  f" then K4 frontier equal to the plain versions; sum K3 "
+                  f"{row['k3_ms']:.3f} ms (bound {row['k3_bound_ms']:.3f}, "
+                  f"plain {row['k3_plain_ms']:.3f}) K4 {row['k4_ms']:.3f} ms "
+                  f"(bound {row['k4_bound_ms']:.3f}, plain "
+                  f"{row['k4_plain_ms']:.3f}); min K3 {row['k3_ms_min']:.3f} "
+                  f"(bound {row['k3_bound_ms_min']:.3f}) K4 "
+                  f"{row['k4_ms_min']:.3f} (bound {row['k4_bound_ms_min']:.3f}"
+                  f")", flush=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        halo = lay.halo_count()
+        halo_s = time.perf_counter() - t0
+        out[name] = dict(layout_build_s=build_s, shards=shards, halo=halo,
+                         halo_count_s=halo_s,
+                         halo_wire_bytes_per_superstep=halo * 4,
+                         allgather_wire_bytes_per_superstep=(ndev - 1)
+                         * lay.v_pad * 4)
+        print(f"(i1) {name}: 4-way layout built on the card in {build_s:.3f}s;"
+              f" halo {halo} (owner, remote vertex) pairs, counted on the card"
+              f" in {halo_s:.3f}s = {halo * 4} B a PageRank superstep under "
+              f"the halo plan (allgather: "
+              f"{out[name]['allgather_wire_bytes_per_superstep']} B)",
+              flush=True)
+    s_b, h_b = (out[n]["halo_wire_bytes_per_superstep"]
+                for n in ("spinner", "hash"))
+    check(s_b < h_b, f"(i1) Spinner's halo {s_b} B not below hash's {h_b} B")
+    print(f"(i1) halo wire bytes a PageRank superstep, Spinner / hash: "
+          f"{s_b} / {h_b} = {s_b / h_b:.4f}", flush=True)
+    report["apps_mesh_shards"] = out
+    report["apps_mesh_err"] = errs
+
+
+def phase_apps_mesh_main(graph, labels: np.ndarray, dev,
+                         report: dict) -> None:
+    """(i2) ``run_app(mesh=make_partition_mesh(1))`` of the full graph on the
+    Spinner placement: PageRank, WCC and BFS with the allgather plan,
+    overlap on and off, identical to (f)'s runs, K3 and K4 launched once
+    per superstep; then one superstep split into its parts."""
+    from repro_torch.apps import APPS, build_app_layout, init_values, run_app
+    from repro_torch.core.comm import Comm
+    from repro_torch.kernels.pregel_combine import (pregel_combine,
+                                                    pregel_reduce)
+    from repro_torch.launch.mesh import make_partition_mesh, mesh_group
+
+    mesh = make_partition_mesh(1, device=dev)
+    want = report["app_results"]
+    runs, launches = {}, 0
+    for wl, kw in (("pagerank", dict(iters=PAGERANK_ITERS)), ("wcc", {}),
+                   ("bfs", dict(source=0))):
+        w = want[wl]
+        for overlap in (True, False):
+            pregel_reduce.launches = pregel_combine.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = run_app(graph, labels, wl, mesh=mesh, plan="allgather",
+                        overlap=overlap, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n3, n4 = pregel_reduce.launches, pregel_combine.launches
+            check(np.array_equal(r.values, w.values)
+                  and (r.supersteps, r.converged) == (w.supersteps,
+                                                      w.converged)
+                  and np.array_equal(r.device_messages, w.device_messages),
+                  f"(i2) {wl} overlap={overlap} differs from (f)'s run")
+            check(r.wire_bytes == 0.0 and r.plan == "allgather"
+                  and r.ndev == 1, f"(i2) {wl}: {r.wire_bytes} B on the wire")
+            check(n3 == n4 == r.supersteps, f"(i2) {wl}: kernels launched "
+                  f"{n3}/{n4} times in {r.supersteps} supersteps")
+            launches += n3
+            runs[f"{wl}/overlap={overlap}"] = dict(
+                supersteps=r.supersteps, wall_s=wall,
+                ms_per_superstep=wall / r.supersteps * 1e3)
+            print(f"(i2) run_app({wl!r}, mesh=1 rank, plan='allgather', "
+                  f"overlap={overlap}): supersteps={r.supersteps} wall="
+                  f"{wall:.3f}s ms/superstep={wall / r.supersteps * 1e3:.3f} "
+                  f"wire_bytes={r.wire_bytes} launches={n3}+{n4}; identical "
+                  f"to (f)'s run", flush=True)
+
+    # one PageRank superstep (overlap) split into its parts
+    lay = build_app_layout(graph, labels, dev)
+    plan = lay.exchange_plan(graph, "allgather")
+    comm = Comm(group=mesh_group(mesh), rank=0, ndev=1)
+    args = plan.device_args(0, dev)
+    sh = lay.shard(0, plan)
+    values = torch.from_numpy(init_values(APPS["pagerank"], lay)).to(dev)
+    share = torch.clamp(sh.deg_cnt, min=1.0)
+    send = values / share
+    base = float(np.float32(0.15 / lay.num_real))
+    partial = pregel_reduce(send, *sh.interior, combine="sum")
+    split = {
+        "send_ms": time_ms(lambda: values / share, reps=20),
+        "k3_ms": time_ms(lambda: pregel_reduce(send, *sh.interior,
+                                               combine="sum"), reps=20),
+        "exchange_ms": time_ms(lambda: plan.exchange(send, (), comm, *args),
+                               reps=20),
+        "k4_ms": time_ms(lambda: pregel_combine(
+            send, *sh.frontier, values, sh.valid, base, combine="sum",
+            update="pagerank", damping=0.85, acc_init=partial), reps=20)}
+    print("(i2) one PageRank superstep (world size 1, allgather): " + " ".join(
+        f"{k}={x:.3f}" for k, x in split.items()), flush=True)
+    report["apps_mesh_main"] = dict(runs, split=split, launches=launches)
+
+
+def phase_apps_mesh_medium(g, labels: np.ndarray, dev) -> None:
+    """(i3) The medium graph at world size 1: every workload x plan x
+    overlap x combine identical to the single-device run (PageRank on the
+    plain versions within rtol 1e-4: their float sums repeat no order on
+    the card); the halo of the 4-way layout counted on the card equal to
+    ``HaloPlan.true_halo``."""
+    from repro_torch.apps import build_app_layout, run_app
+    from repro_torch.launch.mesh import make_partition_mesh
+
+    mesh = make_partition_mesh(1, device=dev)
+    n = 0
+    t0 = time.perf_counter()
+    for wl in ("pagerank", "wcc", "bfs", "sssp"):
+        for combine in ("cuda", "torch"):
+            want = run_app(g, labels, wl, combine=combine, device=dev)
+            for plan in ("allgather", "halo", "halo_delta", "delta"):
+                for overlap in (True, False):
+                    r = run_app(g, labels, wl, mesh=mesh, plan=plan,
+                                overlap=overlap, combine=combine)
+                    # the plain sum is index_add_, whose float order on
+                    # the card changes run to run: PageRank on "torch"
+                    # within the repo's PageRank tolerance
+                    same = (bool(np.allclose(r.values, want.values,
+                                             rtol=1e-4, atol=1e-9))
+                            if (wl, combine) == ("pagerank", "torch")
+                            else np.array_equal(r.values, want.values))
+                    check(same and r.supersteps == want.supersteps
+                          and np.array_equal(r.device_messages,
+                                             want.device_messages)
+                          and r.wire_bytes == 0.0,
+                          f"(i3) medium {wl}/{plan}/{overlap}/{combine} "
+                          f"differs from the single-device run")
+                    n += 1
+    print(f"(i3) medium V={g.num_vertices}: {n} run_app calls on a one-rank "
+          f"mesh (pagerank/wcc/bfs/sssp x allgather/halo/halo_delta/delta x "
+          f"overlap on/off x cuda/torch) identical to the single-device runs "
+          f"(PageRank on torch within rtol 1e-4) in "
+          f"{time.perf_counter() - t0:.3f}s", flush=True)
+    for name, lab in (("spinner", labels),
+                      ("hash", hash_labels(g.num_vertices, K))):
+        lay = build_app_layout(g, lab, dev, ndev=4)
+        card, host = lay.halo_count(), lay.exchange_plan(g, "halo").true_halo
+        check(card == host, f"(i3) {name}: halo {card} on the card, "
+              f"{host} from HaloPlan")
+        print(f"(i3) medium {name} 4-way layout: halo {card} on the card = "
+              f"HaloPlan.true_halo {host}", flush=True)
+
+
 def print_rates(kernels: list) -> None:
     """(e) Each kernel's achieved rate, the bytes its bound counts over its
     measured time, beside the bound; adds ``achieved_bytes_per_s`` (and
@@ -1377,6 +1649,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_sharded_main(graph, report["main_result"], dev, report)
     phase_sharded_medium(*medium, dev, report)
+    torch.cuda.empty_cache()
+    phase_apps_mesh_kernels(graph, labels, dev, report)
+    torch.cuda.empty_cache()
+    phase_apps_mesh_main(graph, labels, dev, report)
+    phase_apps_mesh_medium(*medium, dev)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB", flush=True)
 
@@ -1431,6 +1708,17 @@ def main() -> int:
     for r in kernels:
         if r["name"] in ("spinner_scores_csr", "fused_update_csr"):
             r["bytes"] = report[r["name"]]["bytes"]
+        if r["name"] in ("pregel_reduce_csr", "pregel_combine_csr"):
+            # (i): K3 over each rank's interior, K4 over its frontier
+            part = "k3" if r["name"] == "pregel_reduce_csr" else "k4"
+            r["launches_mesh_world_1"] = report["apps_mesh_main"]["launches"]
+            r["max_abs_err"] = max(r["max_abs_err"],
+                                   report["apps_mesh_err"][r["name"]])
+            for place, res in report["apps_mesh_shards"].items():
+                for sfx in ("", "_min"):
+                    for key in ("ms", "bound_ms", "plain_ms"):
+                        r[f"{key}_4_shards_{place}{sfx}"] = [
+                            sh[f"{part}_{key}{sfx}"] for sh in res["shards"]]
     print_rates(kernels)
     k2 = next(r for r in kernels if r["name"] == "spinner_scores_csr")
     k2.update(interior_ms_4_shards=[r["interior_ms"] for r in shards],

@@ -36,12 +36,13 @@ class AppSpec:
     bias: int               # added to each message (BFS hop count)
     halts: bool             # drain-halt on zero changed vs. fixed iters
     default_iters: int      # pagerank sweep length / halt-cap for others
+    default_plan: str       # exchange plan on a mesh
 
 
 APPS = {
-    "pagerank": AppSpec("pagerank", "sum", 0, False, 20),
-    "wcc": AppSpec("wcc", "min", 0, True, 4096),
-    "bfs": AppSpec("bfs", "min", 1, True, 4096),
+    "pagerank": AppSpec("pagerank", "sum", 0, False, 20, "halo"),
+    "wcc": AppSpec("wcc", "min", 0, True, 4096, "halo_delta"),
+    "bfs": AppSpec("bfs", "min", 1, True, 4096, "halo_delta"),
 }
 APPS["sssp"] = dataclasses.replace(APPS["bfs"], name="sssp")
 

@@ -448,7 +448,9 @@ class DeltaPlan(ExchangePlan):
         idx_l = order[:cap]
         idx_g = torch.where(changed[idx_l], idx_l + off,
                             v_pad).to(torch.int32)
-        outbox = torch.cat([idx_g, labels_local[idx_l]])
+        # one int32 buffer: float values travel bit-cast, so neither the
+        # indices nor the values round through float32
+        outbox = torch.cat([idx_g, labels_local[idx_l].view(torch.int32)])
         inbox = outbox.new_empty(comm.ndev * 2 * cap)
         return "compact", (aux, inbox), _all_gather(inbox, outbox, comm), \
             wire
@@ -461,7 +463,8 @@ class DeltaPlan(ExchangePlan):
         aux, inbox = out
         g = inbox.view(self.ndev, 2, self.cap)
         mirror = torch.cat([aux, aux.new_zeros(1)])
-        mirror[g[:, 0].reshape(-1).long()] = g[:, 1].reshape(-1)
+        mirror[g[:, 0].reshape(-1).long()] = \
+            g[:, 1].reshape(-1).view(aux.dtype)
         lookup = mirror[:self.v_pad]
         return lookup, lookup, wire
 

@@ -604,23 +604,25 @@ class PartitionSession:
         """Consume this session's partition: run a Pregel application
         (``"pagerank"`` / ``"wcc"`` / ``"bfs"`` / ``"sssp"``) on the
         session graph placed by its labels, through
-        :func:`repro_torch.apps.run_app` on the session's device.
+        :func:`repro_torch.apps.run_app` on the session's device -- on the
+        session's mesh and axis, if it has one (SPMD: every rank calls).
 
         ``labels`` defaults to the session's current stable assignment
         (``partition()`` must have run); pass any vector (e.g. the hash
         baseline) to A/B a placement on the same graph.  Keyword args go
-        to ``run_app`` (``combine``, ``iters``, ``source``, ...).
+        to ``run_app`` (``plan``, ``combine``, ``overlap``, ``iters``,
+        ``source``, ...).
         """
         self._check_open()
-        if self._mesh is not None:
-            raise NotImplementedError("run_app on a mesh (the applications' "
-                                      "multi-device options) " + _MESH_TODO)
         from ..apps import run_app as _run_app   # lazy: apps imports core
         if labels is None:
             labels = self._prev
             if labels is None:
                 raise ValueError("no labels yet: run partition() first "
                                  "or pass labels= explicitly")
+        if "mesh" not in kwargs and self._mesh is not None:
+            kwargs["mesh"] = self._mesh
+        kwargs.setdefault("axis", self.options.axis)
         kwargs.setdefault("device", self._device)
         return _run_app(self.graph, np.asarray(labels), workload, **kwargs)
 

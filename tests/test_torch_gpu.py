@@ -206,6 +206,91 @@ def test_run_app_on_card_matches_cpu(cuda, workload):
     assert torch_run.supersteps == got.supersteps
 
 
+def _halo_lookup(plan, send, rank, ndev, vl):
+    """The ``[local | halo]`` lookup the halo exchange would assemble on
+    ``rank`` from the whole send vector."""
+    send_idx = torch.from_numpy(plan._send_idx.astype(np.int64)).to(
+        send.device)                              # (owner, needer, H)
+    owners = torch.arange(ndev, device=send.device)[:, None] * vl
+    halo = send[owners + send_idx[:, rank]].reshape(-1)
+    return torch.cat([send[rank * vl:(rank + 1) * vl], halo])
+
+
+@pytest.mark.parametrize("ndev", [2, 3, 4])
+@pytest.mark.parametrize("combine,update,bias", PREGEL)
+def test_pregel_kernels_on_app_shards_match_plain(cuda, ndev, combine,
+                                                  update, bias):
+    """Each rank of an n-way app layout: K3 over its interior, then K4
+    over its frontier (non-empty) seeded by K3's partial, reading the
+    whole send vector (allgather/delta index) and the halo lookup: min
+    bitwise, sum within rtol 1e-5 and bitwise repeatable."""
+    g = generators.powerlaw_ba(3000, 5, seed=4)        # v_pad 3072
+    labels = np.random.default_rng(2).integers(0, 8, g.num_vertices)
+    lay = build_app_layout(g, labels, cuda, ndev=ndev)
+    halo = lay.exchange_plan(g, "halo")
+    gen = np.random.default_rng(5 + bias)
+    v, vl = lay.v_pad, lay.v_per_dev
+    if combine == "sum":
+        send, values = (gen.uniform(0, 1e-3, v).astype(np.float32)
+                        for _ in range(2))
+    else:
+        send, values = (gen.integers(0, g.num_vertices, v).astype(np.int32)
+                        for _ in range(2))
+        send[gen.random(v) < 0.3] = ref.INF_I32
+    send, values = torch.from_numpy(send).to(cuda), \
+        torch.from_numpy(values).to(cuda)
+    base = float(np.float32(0.15 / g.num_vertices))
+
+    def same(a, b):
+        if combine == "min" or a.dtype == torch.bool:
+            return torch.equal(a, b)
+        return torch.allclose(a, b, rtol=1e-5, atol=1e-9)
+
+    kw = dict(combine=combine, bias=bias)
+    ckw = dict(kw, update=update, damping=0.85)
+    for rank in range(ndev):
+        rows = slice(rank * vl, (rank + 1) * vl)
+        for plan, lookup in ((None, send),
+                             (halo, _halo_lookup(halo, send, rank, ndev,
+                                                 vl))):
+            sh = lay.shard(rank, plan)
+            assert sh.frontier[1].numel() > 0
+            partial = pregel_reduce(send[rows], *sh.interior, **kw)
+            assert _bits_equal(partial, pregel_reduce(send[rows],
+                                                      *sh.interior, **kw))
+            assert same(partial, ref.pregel_reduce_ref(send[rows],
+                                                       *sh.interior, **kw))
+            args = (lookup, *sh.frontier, values[rows], sh.valid, base)
+            got = pregel_combine(*args, acc_init=partial, **ckw)
+            again = pregel_combine(*args, acc_init=partial, **ckw)
+            assert all(_bits_equal(a, b) for a, b in zip(got, again))
+            want = ref.pregel_combine_ref(*args, acc_init=partial, **ckw)
+            assert all(same(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("plan", ["allgather", "halo", "halo_delta",
+                                  "delta"])
+def test_run_app_on_one_rank_mesh_matches_single_device(cuda, plan):
+    """A one-rank NCCL mesh: every workload under both schedules equals
+    the run without a mesh, nothing crosses the wire, and each kernel
+    launches once per superstep."""
+    g = generators.watts_strogatz(3000, 10, 0.25, seed=7)
+    labels = (np.arange(g.num_vertices) * 2654435761 % 8).astype(np.int32)
+    mesh = make_partition_mesh(1)
+    for workload in ("pagerank", "wcc", "bfs", "sssp"):
+        want = run_app(g, labels, workload, device=cuda)
+        for overlap in (True, False):
+            pregel_reduce.launches = pregel_combine.launches = 0
+            got = run_app(g, labels, workload, mesh=mesh, plan=plan,
+                          overlap=overlap)
+            assert pregel_reduce.launches == pregel_combine.launches \
+                == got.supersteps == want.supersteps
+            assert (got.plan, got.ndev, got.wire_bytes) == (plan, 1, 0.0)
+            np.testing.assert_array_equal(got.values, want.values)
+            np.testing.assert_array_equal(got.device_messages,
+                                          want.device_messages)
+
+
 def _delta_segment(g, dev, seed):
     """A merged delta segment over the padded upload of ``g``."""
     padded, _ = engine.padded_view(g, EngineOptions(device="cpu"))

@@ -1,30 +1,23 @@
 """The sharded engine at world sizes 2 and 4 on the CPU, against the reference.
 
-The port runs SPMD: one process per shard, spawned with
-``torch.multiprocessing`` into a gloo group on a ``FileStore`` under the
-test's temporary directory (no TCP port, so parallel test workers cannot
-collide).  The reference runs ``partition(engine="sharded")`` over
-``ndev`` forced host devices in a subprocess
-(``XLA_FLAGS=--xla_force_host_platform_device_count``), as
-``tests/test_distributed.py`` does.  Both start together, once per world
-size, and run every case; the tests then compare labels, loads,
+The port runs SPMD, one process per shard in a gloo group, and the
+reference runs ``partition(engine="sharded")`` over ``ndev`` forced host
+devices in a subprocess, as ``tests/test_distributed.py`` does
+(``torch_spawn.run_world``).  Both start together, once per world size,
+and run every case; the tests then compare labels, loads,
 iterations, halted and ``exchanged_bytes`` bit for bit, for all four
 exchange plans with and without overlap, replicated and folded noise, on
 the ``"cuda"`` backend (its plain versions on CPU tensors) and the torch
 oracle.  Every rank must return the same result.
 """
 import json
-import os
-import subprocess
-import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
-import torch.multiprocessing as mp
 
-REPO = Path(__file__).resolve().parents[1]
+from torch_spawn import run_world
+
 WORLDS = (2, 4)
 GRAPH = dict(n=600, k=8, p=0.2, seed=11)
 CFG = dict(k=6, seed=2, max_iters=60)
@@ -121,37 +114,10 @@ def runs(tmp_path_factory):
     """Per world size: the reference's results and each rank's."""
     out = {}
     for world in WORLDS:
-        tmp = tmp_path_factory.mktemp(f"world{world}")
-        data = str(tmp / "reference.npz")
-        env = dict(os.environ, PYTHONPATH=str(REPO / "src"),
-                   JAX_PLATFORMS="cpu",
-                   XLA_FLAGS=f"--xla_force_host_platform_device_count="
-                             f"{world}")
-        ref = subprocess.Popen(
-            [sys.executable, "-c", REFERENCE, str(world), data,
-             json.dumps(CASES), json.dumps(GRAPH), json.dumps(CFG)],
-            env=env, cwd=REPO, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True)
-        port = str(tmp / "port-%d.npz")
-        ctx = mp.get_context("spawn")
-        procs = [ctx.Process(target=_worker,
-                             args=(r, world, str(tmp / "store"), port))
-                 for r in range(world)]
-        for p in procs:
-            p.start()
-        try:
-            _, err = ref.communicate(timeout=TIMEOUT)
-        finally:
-            ref.kill()
-            for p in procs:
-                p.join(TIMEOUT)
-            alive = [p for p in procs if p.is_alive()]
-            for p in alive:
-                p.kill()
-                p.join()
-        assert ref.returncode == 0, err[-3000:]
-        assert not alive and all(p.exitcode == 0 for p in procs), \
-            [p.exitcode for p in procs]
+        data, port = run_world(
+            tmp_path_factory.mktemp(f"world{world}"), world, _worker,
+            REFERENCE, [json.dumps(CASES), json.dumps(GRAPH),
+                        json.dumps(CFG)], TIMEOUT)
         with open(data + ".json") as f:
             ref_stats = json.load(f)
         ranks = []

@@ -492,16 +492,28 @@ def test_closed_session_raises_one_message(base_graph):
 
 def test_sharded_raises_and_run_app_delegates(base_graph):
     """A sharded session (the default one-rank mesh) runs as the
-    reference's on a 1-device mesh; its run_app is not ported yet and
-    raises; a single-device session's run_app delegates to the apps."""
+    reference's on a 1-device mesh, and so does its run_app, on the
+    session's mesh with the workload's default plan; a single-device
+    session's run_app delegates to the apps."""
     g = graph_from_reference(base_graph)
     cfg = dict(k=3, seed=2, max_iters=40)
     twin = Twin(base_graph, cfg, RefOptions(engine="sharded"),
                 _opts(engine="sharded"))
     r, p = twin.call("partition")
     assert p.engine == r.engine == "sharded"
-    with pytest.raises(NotImplementedError, match="Slice D"):
-        twin.port.run_app("wcc")
+    for workload, kw in (("wcc", {}), ("pagerank", dict(plan="delta"))):
+        got = twin.port.run_app(workload, **kw)
+        want = twin.ref.run_app(workload, **kw)
+        assert (got.plan, got.ndev, got.supersteps, got.converged,
+                got.wire_bytes) == (want.plan, want.ndev, want.supersteps,
+                                    want.converged, want.wire_bytes)
+        if workload == "pagerank":
+            np.testing.assert_allclose(got.values, want.values, rtol=1e-4,
+                                       atol=1e-9)
+        else:
+            np.testing.assert_array_equal(got.values, want.values)
+        np.testing.assert_array_equal(got.device_messages,
+                                      want.device_messages)
     s = open_session(g, SpinnerConfig(k=3, seed=2), _opts())
     with pytest.raises(ValueError, match="partition"):
         s.run_app("wcc")

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.apps import run_app as ref_run_app
 from repro.core import EngineOptions as RefOptions
 from repro.core import SpinnerConfig as RefConfig
 from repro.core import comm as ref_comm
@@ -360,8 +361,13 @@ def test_session_mesh_paths_not_ported_raise(graphs, meshes):
         s.adapt(edge_updates=([0], [5]))          # the sharded fast path
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         s.adapt(edge_updates=([0], [7]), frontier=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        s.run_app("wcc")
+    # run_app on the session's mesh: the reference's on its 1-device mesh
+    app = s.run_app("wcc")
+    want = ref_run_app(graphs["ws"], s.labels, "wcc", mesh=meshes[0])
+    assert (app.plan, app.ndev, app.supersteps, app.wire_bytes) == (
+        want.plan, want.ndev, want.supersteps, want.wire_bytes)
+    np.testing.assert_array_equal(app.values, want.values)
+    np.testing.assert_array_equal(app.device_messages, want.device_messages)
     with pytest.raises(ValueError, match="engine='sharded'"):
         open_session(pg, SpinnerConfig(k=4), EngineOptions(
             device="cpu", mesh=meshes[1], engine="chunked")).partition()
