@@ -84,6 +84,23 @@ about 128 M directed CSR entries, k = 32):
       overlap x combine identical to the single-device run, and the
       4-way layout's halo counted on the card equal to
       ``HaloPlan.true_halo``;
+  (j) continuous partitioning on a mesh (no kernel: the sharded frontier
+      runner and the sharded delta merge run on the torch scatter
+      backend): (j1) ``open_session`` of the full graph on a one-rank NCCL
+      mesh (torch backend, overlap off, the allgather plan) running
+      ``partition()``, ``adapt(edge_updates=B1, frontier=True)`` and
+      ``adapt(edge_updates=B2)`` -- both adapts on the fast path with no
+      host rebuild, uploads of 12 bytes an entry, each call's wall time,
+      iterations, scored fraction and partitioning difference from the
+      previous labels, all three identical to (g2)'s torch-backend run --
+      and one sharded frontier iteration split into draws / exchange /
+      expansion / scores / epilogue; (j2) on the medium graph from (d)'s
+      labels, every exchange plan x fused on/off x noise mode of the mesh
+      session (a frontier adapt then a dense one, ``max_iters`` 5)
+      identical to the CPU run of its noise mode, the halo plans and an
+      overflowing batch falling back, the CUDA backend's frontier adapt
+      raising ``ValueError``; (j3) ``expert_placement_case()`` on the card
+      identical to the CPU run;
   (e) each kernel's achieved bytes/s (the bytes its bound counts over its
       measured time) beside its bound, then one JSON line describing each
       kernel.
@@ -1027,6 +1044,8 @@ def phase_session(graph, dev, report: dict) -> None:
     report["session"]["frontier_scored_fraction"] = frac
     report["fused_update_frontier_csr"]["launches"] = \
         runs["cuda"][0]["adapt_b1_frontier"]["variant_launches"]
+    report["session_torch"] = {name: c["res"]
+                               for name, c in runs["torch"][0].items()}
 
 
 def phase_session_medium(g, dev) -> None:
@@ -1577,6 +1596,227 @@ def phase_apps_mesh_medium(g, labels: np.ndarray, dev) -> None:
               f"HaloPlan.true_halo {host}", flush=True)
 
 
+MESH_MEDIUM_ITERS = 5      # (j2)'s depth: its CPU side draws ~1.5 s an
+                           # iteration at the medium size
+
+
+def _launch_counts() -> tuple:
+    from repro_torch.kernels.spinner_scores import (fused_update,
+                                                    fused_update_frontier,
+                                                    fused_update_seeded,
+                                                    spinner_scores)
+    return tuple(f.launches for f in (fused_update, fused_update_frontier,
+                                      fused_update_seeded, spinner_scores))
+
+
+def phase_mesh_session(graph, dev, smi: str, report: dict) -> None:
+    """(j1) Continuous partitioning of the full graph on a one-rank NCCL
+    mesh: the torch backend's session, both adapts on the fast path, held
+    to (g2)'s torch-backend run; one sharded frontier iteration split into
+    its parts."""
+    from repro_torch import rng
+    from repro_torch.core import (EngineOptions, SpinnerConfig, engine,
+                                  open_session, partitioning_difference)
+    from repro_torch.launch.mesh import make_partition_mesh
+
+    v, e = graph.num_vertices, graph.num_directed_entries
+    b1 = edge_batch(v, B1_PAIRS, seed=0)
+    b2 = edge_batch(v, B2_PAIRS, seed=1)
+    cfg = SpinnerConfig(k=K)
+    opts = EngineOptions(mesh=make_partition_mesh(1, device=dev), device=dev,
+                         score_backend="torch", overlap="off")
+    s = open_session(graph, cfg, opts)
+    calls, prev = {}, None
+    for name, call in (
+            ("partition", lambda: s.partition()),
+            ("adapt_b1_frontier",
+             lambda: s.adapt(edge_updates=b1, frontier=True)),
+            ("adapt_b2", lambda: s.adapt(edge_updates=b2))):
+        n0 = _launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(_launch_counts() == n0, f"(j1) {name} launched a CUDA kernel "
+              "on the torch backend")
+        d = s.stats()["delta"]
+        sent = d["last_upload_bytes"] if name != "partition" else 0
+        frac = (sum(r.scored_per_iter) / (v * r.iterations)
+                if r.scored_per_iter else 1.0)
+        moved = (partitioning_difference(prev, r.labels)
+                 if prev is not None else None)
+        calls[name] = dict(res=r, wall_s=wall, upload_bytes=sent,
+                           scored_fraction=frac, moved=moved)
+        print(f"(j1) mesh session {name} [{smi}]: engine={r.engine} "
+              f"iterations={r.iterations} halted={r.halted} wall="
+              f"{wall:.3f}s scored fraction {frac:.6f} moved from the "
+              f"previous labels {moved} exchanged_bytes={r.exchanged_bytes}"
+              + (f" upload={sent} B ({sent / (12 * e):.6f} of 12*E)"
+                 if name != "partition" else ""), flush=True)
+        prev = r.labels
+    d = s.stats()["delta"]
+    check(d["fast_adapts"] == 2 and d["fallback_adapts"] == 0
+          and d["host_rebuilds"] == 0, f"(j1) not both fast: {d}")
+    for name, pairs in (("adapt_b1_frontier", B1_PAIRS),
+                        ("adapt_b2", B2_PAIRS)):
+        check(0 < calls[name]["upload_bytes"] <= 12 * 2 * pairs,
+              f"(j1) {name} uploaded more than 12 bytes an entry")
+    want = report["session_torch"]
+    for name, c in calls.items():
+        a, b = c["res"], want[name]
+        check(np.array_equal(a.labels, b.labels)
+              and np.array_equal(a.loads, b.loads)
+              and (a.iterations, a.halted, a.scored_per_iter)
+              == (b.iterations, b.halted, b.scored_per_iter),
+              f"(j1) {name} differs from (g2)'s torch-backend run")
+    print(f"(j1) the three calls identical to (g2)'s torch-backend session "
+          f"(labels, loads, iterations, scored_per_iter); delta counters "
+          f"{d}", flush=True)
+
+    # one sharded frontier iteration on the merged graph's base layout,
+    # split into its parts (B1's dirty set, on the labels after B2)
+    _, plan, step, bind, comm = engine._sharded_parts(
+        graph, cfg, opts, opts.mesh, frontier=True)
+    vl = bind.deg_w.shape[0]
+    labels = engine.pad_labels(torch.from_numpy(prev).to(dev), vl)
+    loads = engine.device_loads(labels, bind.deg_w, K)
+    active = torch.zeros(vl, dtype=torch.bool, device=dev)
+    active[torch.from_numpy(np.concatenate(b1)).to(dev)] = True
+    k_noise, k_mig = rng.split(rng.split(rng.PRNGKey(11))[1])
+    draws = engine._sharded_draws(cfg, comm, vl, "replicated")
+    lookup, aux, _ = plan.prime(labels, comm, *bind.plan_args)
+    changed = active.clone()          # as if B1's endpoints had moved
+    scores_fn = opts.backend().make_sharded_scores(K, vl)
+    propose, finish = engine.make_update_parts(
+        K, degree_weighted=True, current_bonus=cfg.current_bonus)
+    reduce_ = engine.make_rank_sum(comm)
+    noise, u = draws(k_noise, bind, dev)
+    scores = scores_fn(lookup, labels, bind)
+    valid = bind.valid & active
+    state = engine.init_state(labels, loads, rng.PRNGKey(3))
+
+    def epilogue():
+        parts = propose(scores, labels, bind.deg_w, loads, noise, valid,
+                        bind.capacity)
+        finish(*parts, labels, bind.deg_w, loads, u, valid, bind.capacity,
+               reduce_)
+        reduce_([valid.to(torch.float32).sum(),
+                 ((parts[0] != labels) & valid).sum().to(torch.int32)])
+
+    split = {
+        "draws_ms": time_ms(lambda: draws(k_mig, bind, dev), reps=3,
+                            warmup=1),
+        "exchange_ms": time_ms(lambda: plan.exchange(
+            labels, aux, comm, *bind.plan_args), reps=10),
+        "expansion_ms": time_ms(lambda: engine.frontier_touched(
+            changed, bind.frontier, rows=vl), reps=5),
+        "scores_ms": time_ms(lambda: scores_fn(lookup, labels, bind),
+                             reps=3, warmup=1),
+        "epilogue_ms": time_ms(epilogue, reps=5),
+        "step_ms": time_ms(lambda: step(state, aux, active, lookup, bind),
+                           reps=3, warmup=1),
+    }
+    del scores, noise
+    print(f"(j1) one sharded frontier iteration (torch backend, world size "
+          f"1) [{smi}]: " + " ".join(f"{k}={x:.3f}" for k, x in
+                                    split.items()), flush=True)
+    report["mesh_session"] = dict(
+        {name: {k: x for k, x in c.items() if k != "res"}
+         | dict(iterations=c["res"].iterations, halted=c["res"].halted)
+         for name, c in calls.items()}, split=split, card=smi)
+
+
+def phase_mesh_medium(g, base: np.ndarray, dev, smi: str) -> None:
+    """(j2) The medium graph from (d)'s labels: every plan x fused on/off x
+    noise mode of the mesh session on the card, each bitwise equal to the
+    CPU run of the same calls for its noise mode (the CPU tests hold every
+    plan and fused form to one trajectory per noise mode); the halo plans
+    fall back; a batch that overflows the slack falls back; the CUDA
+    backend's frontier adapt raises."""
+    from repro_torch.core import EngineOptions, SpinnerConfig, open_session
+    from repro_torch.launch.mesh import make_partition_mesh
+
+    cfg = SpinnerConfig(k=K, max_iters=MESH_MEDIUM_ITERS)
+    v = g.num_vertices
+    b1, b2 = edge_batch(v, 4_000, seed=3), edge_batch(v, 16_000, seed=4)
+    # 1.2 M entries: more than the edge bucket's ~0.94 M spare slots
+    big = edge_batch(v, 600_000, seed=5)
+    meshes = {"card": make_partition_mesh(1, device=dev),
+              "cpu": make_partition_mesh(device="cpu")}
+
+    def run(where, plan, fused, noise, backend="torch", overflow=False):
+        s = open_session(g, cfg, EngineOptions(
+            mesh=meshes[where], device=dev if where == "card" else "cpu",
+            label_exchange=plan, fused_update=fused, sharded_noise=noise,
+            score_backend=backend, overlap="off"))
+        out = [s.adapt(edge_updates=b1, frontier=True, prev=base)]
+        out.append(s.adapt(edge_updates=big if overflow else b2))
+        return out, s.stats()["delta"]
+
+    def same(a, b):
+        return all(np.array_equal(x.labels, y.labels)
+                   and np.array_equal(x.loads, y.loads)
+                   and (x.iterations, x.halted, x.scored_per_iter,
+                        x.exchanged_bytes) == (y.iterations, y.halted,
+                                               y.scored_per_iter,
+                                               y.exchanged_bytes)
+                   for x, y in zip(a, b))
+
+    t0 = time.perf_counter()
+    cpu = {noise: run("cpu", "allgather", "off", noise)
+           for noise in ("replicated", "folded")}
+    t_cpu = time.perf_counter() - t0
+    n = 0
+    t0 = time.perf_counter()
+    for plan in ("allgather", "halo", "halo_delta", "delta"):
+        for fused in ("on", "off"):
+            for noise in ("replicated", "folded"):
+                res, d = run("card", plan, fused, noise)
+                fast = plan in ("allgather", "delta")
+                check(same(res, cpu[noise][0]),
+                      f"(j2) {plan}/{fused}/{noise} differs from the CPU run")
+                check((d["fast_adapts"], d["fallback_adapts"])
+                      == ((2, 0) if fast else (0, 2)),
+                      f"(j2) {plan}/{fused}/{noise} counters {d}")
+                n += 1
+    t_card = time.perf_counter() - t0
+    _, d = run("card", "allgather", "off", "replicated", overflow=True)
+    check((d["fast_adapts"], d["fallback_adapts"]) == (1, 1),
+          f"(j2) overflow batch: {d}")
+    try:
+        run("card", "allgather", "on", "replicated", backend="cuda")
+        check(False, "(j2) the cuda backend's frontier adapt on a mesh ran")
+    except ValueError as err:
+        check("'torch' score backend" in str(err), f"(j2) {err}")
+    print(f"(j2) medium V={v} [{smi}]: {n} mesh sessions (allgather/halo/"
+          f"halo_delta/delta x fused on/off x replicated/folded; a frontier "
+          f"adapt of 4,000 pairs then a dense one of 16,000, max_iters="
+          f"{MESH_MEDIUM_ITERS}) on the card identical to the CPU runs; "
+          f"halo and halo_delta fell back; a 600,000-pair batch overflowed "
+          f"the slack and fell back; the cuda backend's frontier adapt raised "
+          f"ValueError; card {t_card:.3f}s, CPU {t_cpu:.3f}s", flush=True)
+
+
+def phase_placement(dev, smi: str, report: dict) -> None:
+    """(j3) ``expert_placement_case()`` at the reference's defaults on the
+    card against the CPU run."""
+    from repro_torch.core import placement
+
+    t0 = time.perf_counter()
+    g, labels, stats = placement.expert_placement_case(device=dev)
+    wall = time.perf_counter() - t0
+    _, cpu_labels, cpu_stats = placement.expert_placement_case(device="cpu")
+    check(np.array_equal(labels, cpu_labels) and stats == cpu_stats,
+          "(j3) expert placement on the card differs from the CPU run")
+    print(f"(j3) expert_placement_case() [{smi}]: 256 experts, 20,000 "
+          f"tokens, 8 shards, E={g.num_directed_entries}: cross-shard mass "
+          f"{stats['cross_before']:.6f} -> {stats['cross_after']:.6f}, rho "
+          f"{stats['rho']:.6f}, {stats['iterations']} iterations, "
+          f"{wall:.3f}s; identical to the CPU run", flush=True)
+    report["placement"] = dict(stats, wall_s=wall)
+
+
 def print_rates(kernels: list) -> None:
     """(e) Each kernel's achieved rate, the bytes its bound counts over its
     measured time, beside the bound; adds ``achieved_bytes_per_s`` (and
@@ -1654,6 +1894,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_apps_mesh_main(graph, labels, dev, report)
     phase_apps_mesh_medium(*medium, dev)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_mesh_session(graph, dev, smi, report)
+    torch.cuda.empty_cache()
+    phase_mesh_medium(*medium, dev, smi)
+    phase_placement(dev, smi, report)
+    print(f"(j) phase (j) took {time.perf_counter() - t0:.3f}s [{smi}]",
+          flush=True)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB", flush=True)
 

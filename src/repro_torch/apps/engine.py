@@ -44,7 +44,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..core.comm import Comm, gather_shards
+from ..core.comm import gather_shards, mesh_comm
 from ..core.engine import resolve_device
 from ..core.graph import Graph
 from ..kernels import ref
@@ -143,11 +143,9 @@ def run_app(graph: Graph, labels: np.ndarray, workload: str, *,
         comm, plan_name, exchange = None, "none", None
         shard = layout.shard(0)
     else:
-        from ..launch.mesh import (mesh_device, mesh_group, mesh_rank,
-                                   mesh_size)
-        ndev = mesh_size(mesh, axis)
-        comm = Comm(group=mesh_group(mesh, axis),
-                    rank=mesh_rank(mesh, axis), ndev=ndev)
+        from ..launch.mesh import mesh_device
+        comm = mesh_comm(mesh, axis)
+        ndev = comm.ndev
         dev = mesh_device(mesh)
         if device is not None:
             want = torch.device(device)

@@ -63,6 +63,14 @@ class Comm(NamedTuple):
     ndev: int
 
 
+def mesh_comm(mesh, axis: str = "data") -> Comm:
+    """The ``Comm`` of a mesh axis: its group, this process's rank on it
+    and its size."""
+    from ..launch.mesh import mesh_group, mesh_rank, mesh_size
+    return Comm(group=mesh_group(mesh, axis), rank=mesh_rank(mesh, axis),
+                ndev=mesh_size(mesh, axis))
+
+
 def _all_gather(out: torch.Tensor, inp: torch.Tensor, comm: Comm):
     """Tiled all-gather of equal-size shards into ``out``, asynchronously
     (``all_gather_single`` where this PyTorch has it, the older

@@ -32,6 +32,19 @@ O(|delta| log E) on the host and O(|delta|) on the wire:
     uploads only the batch (12 bytes an entry) and runs the engine's
     merge (``engine.merge_delta``): the segment re-sorted by source and
     its row pointer rebuilt on the device, O(slack + V) device work.
+  * the sharded mode (``sharded_csr``), one ``DeviceDelta`` per rank of a
+    mesh: the same kind of delta CSR over the rank's ``v_per_dev`` rows
+    (source as local rows, dst as global ids, the index of the allgather
+    and delta plans' lookup) and the rank's own merged ``deg_w``.  Its slot
+    accounting is the reference's ``sharded_xla`` rule over
+    ``shard_graph(pad=True)``'s segments, kept for every device on every
+    rank: a batch overflows when some device's entries exceed the free
+    slots of its interior and frontier tails, and the decision is taken on
+    the host from the same numpy data on every rank (no collective), so
+    every rank falls back together.  Each rank uploads only the entries
+    whose source it owns (12 bytes each); the reference scatters the
+    whole batch into its ``(ndev, E_shard)`` arrays, so the upload bytes
+    differ from its.
 
 The session layer (``repro_torch.core.session``) owns eligibility,
 fallback and the oracle contract; this module is mechanism.
@@ -265,55 +278,105 @@ class DeltaTracker:
 
 
 # ---------------------------------------------------------------------------
-# The device-resident delta segment (single device)
+# The device-resident delta segment (one device, or one rank of a mesh)
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
 class DeviceDelta:
-    """The session's merged device arrays at one device (``single_csr``).
+    """The session's merged device arrays at one device (``single_csr``)
+    or on one rank of a mesh (``sharded_csr``).
 
     ``csr`` is the padded base graph's shared upload (read, never
-    written); ``deg_w`` the merged degrees (this session's own copy); the
-    delta segment is ``src`` / ``dst`` / ``w`` (the occupied appended
-    entries, sorted by source, stable) with its ``row_ptr`` over the
-    padded vertex set.  ``next_slot`` / ``e_capacity`` are the slot
-    accounting of the edge bucket: the first ``E`` slots hold the base
-    graph, the rest is slack the delta may fill.
+    written; ``None`` on a mesh, whose base is the rank's shard); ``deg_w``
+    the merged degrees (this session's own copy); the delta segment is
+    ``src`` / ``dst`` / ``w`` (the occupied appended entries, sorted by
+    source, stable) with its ``row_ptr`` over the padded vertex set (the
+    rank's rows).  ``next_slot`` / ``e_capacity`` are the slot accounting
+    of the edge bucket at one device: the first ``E`` slots hold the base
+    graph, the rest is slack the delta may fill; on a mesh ``int_fill`` /
+    ``fro_fill`` hold it per device, as the reference's sharded layout.
     """
 
-    mode: str
-    csr: DeviceCSR
+    mode: str                  # single_csr | sharded_csr
+    csr: Optional[DeviceCSR]   # single_csr: the padded base upload
     deg_w: torch.Tensor
-    src: torch.Tensor          # int32 (used,)
+    src: torch.Tensor          # int32 (used,) (local rows when sharded)
     dst: torch.Tensor          # int32 (used,)
     w: torch.Tensor            # f32 (used,) weight deltas
-    row_ptr: torch.Tensor      # int64 (V_pad + 1,)
+    row_ptr: torch.Tensor      # int64 (rows + 1,)
     next_slot: int = 0         # base entries + delta entries held
     e_capacity: int = 0        # the edge bucket: base + slack slots
+    # --- sharded_csr: this rank, and the slot state of every device ---
+    rank: int = 0
+    v_per_dev: int = 0
+    e_shard: int = 0           # padded row width of shard_graph(pad=True)
+    e_interior: int = 0        # its interior segment's width
+    int_fill: Optional[np.ndarray] = None  # (ndev,) abs col of int. slack
+    fro_fill: Optional[np.ndarray] = None  # (ndev,) abs col of fro. slack
 
     @property
     def num_entries(self) -> int:
         return int(self.dst.shape[0])
 
 
-def init_single_csr(csr: DeviceCSR, num_entries: int) -> DeviceDelta:
-    """An empty delta segment over the padded upload ``csr`` of a graph
-    with ``num_entries`` real entries; slack = the bucket's tail."""
-    dev = csr.deg_w.device
-    v_pad = csr.deg_w.shape[0]
+def _empty_segment(deg_w: torch.Tensor, rows: int) -> DeviceDelta:
+    """An empty segment of ``rows`` rows with its own copy of ``deg_w``."""
+    dev = deg_w.device
     return DeviceDelta(
-        mode="single_csr", csr=csr, deg_w=csr.deg_w.clone(),
+        mode="single_csr", csr=None, deg_w=deg_w.clone(),
         src=torch.zeros(0, dtype=torch.int32, device=dev),
         dst=torch.zeros(0, dtype=torch.int32, device=dev),
         w=torch.zeros(0, dtype=torch.float32, device=dev),
-        row_ptr=torch.zeros(v_pad + 1, dtype=torch.int64, device=dev),
-        next_slot=int(num_entries), e_capacity=int(csr.dst.shape[0]))
+        row_ptr=torch.zeros(rows + 1, dtype=torch.int64, device=dev))
+
+
+def init_single_csr(csr: DeviceCSR, num_entries: int) -> DeviceDelta:
+    """An empty delta segment over the padded upload ``csr`` of a graph
+    with ``num_entries`` real entries; slack = the bucket's tail."""
+    dd = _empty_segment(csr.deg_w, csr.deg_w.shape[0])
+    return dataclasses.replace(dd, csr=csr, next_slot=int(num_entries),
+                               e_capacity=int(csr.dst.shape[0]))
+
+
+def init_sharded_csr(deg_w: torch.Tensor, rank: int, segments: tuple
+                     ) -> DeviceDelta:
+    """An empty delta segment over one rank's ``v_per_dev`` rows;
+    ``deg_w`` is the rank's base degrees (copied) and ``segments`` the
+    padded layout's ``distributed.segment_widths``: the interior slack
+    starts after each device's real interior entries, the frontier slack
+    after its real frontier entries."""
+    n_int, n_fro, e_int, e_shard = segments
+    vl = deg_w.shape[0]
+    dd = _empty_segment(deg_w, vl)
+    return dataclasses.replace(
+        dd, mode="sharded_csr", rank=int(rank), v_per_dev=int(vl),
+        e_shard=int(e_shard), e_interior=int(e_int),
+        int_fill=np.asarray(n_int, np.int64).copy(),
+        fro_fill=(int(e_int) + np.asarray(n_fro, np.int64)).copy())
 
 
 def plan_slots(dd: DeviceDelta, plan: BatchPlan) -> Optional[Callable]:
     """The commit that advances the slot count once a batch is merged, or
-    None if the batch would overflow the slack.  Pure: commits nothing."""
+    None if the batch would overflow the slack.  Pure: commits nothing.
+
+    Sharded: the reference's ``sharded_xla`` rule -- a device whose new
+    entries exceed its free interior plus frontier slots overflows; the
+    interior tail fills first."""
     n = plan.num_entries
+    if dd.mode == "sharded_csr":
+        ndev = dd.int_fill.shape[0]
+        counts = np.bincount(plan.src.astype(np.int64) // dd.v_per_dev,
+                             minlength=ndev)
+        int_avail = dd.e_interior - dd.int_fill
+        if np.any(counts > int_avail + (dd.e_shard - dd.fro_fill)):
+            return None
+
+        def commit():
+            used_int = np.minimum(counts, int_avail)
+            dd.int_fill += used_int
+            dd.fro_fill += counts - used_int
+
+        return commit
     if dd.next_slot + n > dd.e_capacity:
         return None
 
@@ -334,13 +397,19 @@ def apply_batch(dd: DeviceDelta, plan: BatchPlan, commit: Callable,
     """
     host = (plan.src.astype(np.int32), plan.dst.astype(np.int32),
             plan.dw.astype(np.float32))
+    if dd.mode == "sharded_csr":
+        # this rank's entries only, their sources as local rows
+        lo = dd.rank * dd.v_per_dev
+        own = (host[0] >= lo) & (host[0] < lo + dd.v_per_dev)
+        host = (host[0][own] - np.int32(lo), host[1][own], host[2][own])
     dev = dd.deg_w.device
     new = tuple(torch.from_numpy(a).to(dev) for a in host)
     src, dst, w, row_ptr, deg_w = merge_run(
         (dd.src, dd.dst, dd.w), new, dd.deg_w)
     commit()
     out = dataclasses.replace(dd, src=src, dst=dst, w=w, row_ptr=row_ptr,
-                              deg_w=deg_w, next_slot=dd.next_slot)
+                              deg_w=deg_w, next_slot=dd.next_slot,
+                              int_fill=dd.int_fill, fro_fill=dd.fro_fill)
     return out, int(sum(a.nbytes for a in host))
 
 

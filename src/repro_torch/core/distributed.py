@@ -118,16 +118,7 @@ def shard_graph(graph, ndev: int, pad: bool = False, *,
     frontier_all = (graph.dst // v_per_dev) != owner_all
     oidx_all = np.arange(graph.src.shape[0], dtype=np.int32)
     owner, frontier = owner_all[real], frontier_all[real]
-    n_int = np.bincount(owner[~frontier], minlength=ndev).astype(np.int64)
-    n_fro = np.bincount(owner[frontier], minlength=ndev).astype(np.int64)
-    e_int = int(n_int.max()) if n_int.size else 0
-    e_fro = int(n_fro.max()) if n_fro.size else 0
-    if e_int + e_fro == 0:
-        e_int = 1                       # keep one (zeroed) slot per shard
-    if pad:
-        e_int = shape_bucket(e_int, floor=128)
-        if e_fro:                       # 1-device shards stay frontier-free
-            e_fro = max(128, 1 << (e_fro - 1).bit_length())
+    n_int, n_fro, e_int, e_fro = _segments(owner, frontier, ndev, pad)
     e_shard = e_int + e_fro
     src_l = np.zeros((ndev, e_shard), np.int32)
     w = np.zeros((ndev, e_shard), np.float32)
@@ -160,6 +151,42 @@ def shard_graph(graph, ndev: int, pad: bool = False, *,
                         weight=w, deg_w=deg.reshape(ndev, v_per_dev),
                         e_interior=e_int, interior_counts=n_int,
                         frontier_counts=n_fro, edge_perm=perm)
+
+
+def _segments(owner: np.ndarray, frontier: np.ndarray, ndev: int,
+              pad: bool) -> tuple:
+    """``(interior counts, frontier counts, interior width, frontier
+    width)`` of the real entries' owners and frontier flags: the widths
+    are the largest counts, bucketed with ``pad`` (the interior by
+    ``shape_bucket``, the frontier to a power of two, at least 128)."""
+    n_int = np.bincount(owner[~frontier], minlength=ndev).astype(np.int64)
+    n_fro = np.bincount(owner[frontier], minlength=ndev).astype(np.int64)
+    e_int = int(n_int.max()) if n_int.size else 0
+    e_fro = int(n_fro.max()) if n_fro.size else 0
+    if e_int + e_fro == 0:
+        e_int = 1                       # keep one (zeroed) slot per shard
+    if pad:
+        e_int = shape_bucket(e_int, floor=128)
+        if e_fro:                       # 1-device shards stay frontier-free
+            e_fro = max(128, 1 << (e_fro - 1).bit_length())
+    return n_int, n_fro, e_int, e_fro
+
+
+def segment_widths(graph: Graph, ndev: int, pad: bool = False) -> tuple:
+    """``shard_graph(graph, ndev, pad)``'s segment sizes without its
+    arrays: ``(interior_counts, frontier_counts, e_interior, e_shard)``,
+    cached on the graph.  The sharded delta's slot accounting reads them
+    (``core.delta.init_sharded_csr``)."""
+    key = ("segments", ndev, pad)
+    out = graph._cache.get(key)
+    if out is None:
+        v_per_dev = -(-graph.num_vertices // ndev)
+        real = graph.weight > 0
+        owner = graph.src[real] // v_per_dev
+        n_int, n_fro, e_int, e_fro = _segments(
+            owner, (graph.dst[real] // v_per_dev) != owner, ndev, pad)
+        out = graph._cache[key] = (n_int, n_fro, e_int, e_int + e_fro)
+    return out
 
 
 def shard_layout(graph: Graph, ndev: int, pad: bool = False) -> ShardedGraph:

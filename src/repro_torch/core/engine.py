@@ -36,6 +36,11 @@ The pieces mirror the reference engine:
     segment -> finish_exchange -> score the frontier segment``, the
     collective in flight while the interior is scored; the result is the
     same bit for bit (integer Eq. 3 weights make every partial exact).
+  * the sharded frontier runner (``make_sharded_frontier_step_fn`` /
+    ``sharded_frontier_loop`` / ``run_sharded_frontier``): frontier mode
+    on a mesh, the torch backend without overlap, as the reference pins
+    its XLA backend; the active set grows along the diff of consecutive
+    lookups, so it works in every plan's index space.
 
 PyTorch has no device-side while loop, so the chunk loop syncs with the
 host once per chunk and sizes each chunk so the run cannot halt before
@@ -621,11 +626,14 @@ def make_host_step(graph: Graph, cfg, opts: EngineOptions,
 # whole padded vertex set, so on a converged base the frontier trajectory
 # replays the reference's bit for bit.
 
-def frontier_touched(changed: torch.Tensor, segments: tuple) -> torch.Tensor:
+def frontier_touched(changed: torch.Tensor, segments: tuple,
+                     rows: Optional[int] = None) -> torch.Tensor:
     """Vertices with an edge to a vertex that changed label, over every
-    ``(src, dst)`` segment (the base COO and the delta)."""
-    hits = torch.zeros(changed.shape[0], dtype=torch.int32,
-                       device=changed.device)
+    ``(src, dst)`` segment (the base COO and the delta).  ``rows`` is the
+    number of source rows when ``dst`` indexes another space than ``src``
+    (a shard's rows against the exchange plan's lookup)."""
+    hits = torch.zeros(changed.shape[0] if rows is None else rows,
+                       dtype=torch.int32, device=changed.device)
     for src, dst in segments:
         hits.index_add_(0, src, changed.index_select(0, dst).to(torch.int32))
     return hits > 0
@@ -701,11 +709,25 @@ def frontier_loop(cfg, opts: EngineOptions, state: SpinnerState,
     iterations.
     """
     step = make_frontier_step(cfg, opts)
+    carry = [active]
+
+    def advance(s: SpinnerState):
+        s, carry[0], count = step(s, carry[0], bind)
+        return s, count
+
+    return _drain_loop(cfg, state, advance)
+
+
+def _drain_loop(cfg, state: SpinnerState, advance: Callable
+                ) -> Tuple[SpinnerState, List[float]]:
+    """Step ``advance(state) -> (state, scored)`` until the state drains
+    or reaches ``max_iters``, reading the drained flag and the scored
+    count on the host once per iteration."""
     halted, it = torch.stack([state.halted.to(torch.int64),
                               state.iteration.to(torch.int64)]).tolist()
     scored: List[float] = []
     while not halted and it < cfg.max_iters:
-        state, active, count = step(state, active, bind)
+        state, count = advance(state)
         drained, count = torch.stack(
             [state.halted.to(torch.float32), count]).tolist()
         scored.append(count)
@@ -801,6 +823,8 @@ class ShardBind(NamedTuple):
     offset: int                # global id of the shard's row 0
     score: tuple               # the score backend's arrays of the shard
     plan_args: tuple           # the exchange plan's tensors for this rank
+    frontier: tuple = ()       # ((src_local, dst), ...) expansion segments,
+                               # dst in the plan's lookup index
 
 
 def make_rank_sum(comm) -> Callable:
@@ -831,6 +855,27 @@ def make_rank_sum(comm) -> Callable:
     return reduce_
 
 
+def _sharded_draws(cfg, comm, v_local: int, noise_mode: str) -> Callable:
+    """``draws(k_it, bind, dev) -> (noise, u)`` for this rank's rows:
+    ``"replicated"`` takes the shard's rows of the whole padded draw
+    (counters offset by the shard's first row), ``"folded"`` folds the rank
+    into the iteration key and draws the shard alone."""
+    k, tie = cfg.k, cfg.tie_noise
+
+    def draws(k_it, bind: ShardBind, dev):
+        if noise_mode == "folded":
+            k_noise, k_mig = rng.split(rng.fold_in(k_it, comm.rank))
+            return (rng.uniform(k_noise, (v_local, k), 0.0, tie, device=dev),
+                    rng.uniform(k_mig, (v_local,), device=dev))
+        k_noise, k_mig = rng.split(k_it)
+        return (rng.uniform(k_noise, (v_local, k), 0.0, tie, device=dev,
+                            offset=bind.offset * k),
+                rng.uniform(k_mig, (v_local,), device=dev,
+                            offset=bind.offset))
+
+    return draws
+
+
 def make_sharded_step_fn(cfg, comm, v_local: int, plan, scores,
                          noise_mode: str, overlap: bool = False,
                          fused: bool = False) -> Callable:
@@ -851,21 +896,10 @@ def make_sharded_step_fn(cfg, comm, v_local: int, plan, scores,
     streams are the single-device engine's; ``"folded"`` folds the rank
     into the iteration key and draws the shard alone.
     """
-    k, tie = cfg.k, cfg.tie_noise
     eps = float(np.float32(cfg.eps))
     update = None if fused else make_vertex_update(cfg)
     reduce_ = make_rank_sum(comm)
-
-    def draws(k_it, bind: ShardBind, dev):
-        if noise_mode == "folded":
-            k_noise, k_mig = rng.split(rng.fold_in(k_it, comm.rank))
-            return (rng.uniform(k_noise, (v_local, k), 0.0, tie, device=dev),
-                    rng.uniform(k_mig, (v_local,), device=dev))
-        k_noise, k_mig = rng.split(k_it)
-        return (rng.uniform(k_noise, (v_local, k), 0.0, tie, device=dev,
-                            offset=bind.offset * k),
-                rng.uniform(k_mig, (v_local,), device=dev,
-                            offset=bind.offset))
+    draws = _sharded_draws(cfg, comm, v_local, noise_mode)
 
     def step(state: SpinnerState, aux, bind: ShardBind):
         key, k_it = rng.split(state.key)
@@ -894,6 +928,68 @@ def make_sharded_step_fn(cfg, comm, v_local: int, plan, scores,
     return step
 
 
+def make_sharded_frontier_step_fn(cfg, comm, v_local: int, plan, scores,
+                                  noise_mode: str,
+                                  fused: bool = False) -> Callable:
+    """``step(state, aux, active, prev_lookup, bind) -> (state, aux, active,
+    lookup, scored)``: one frontier iteration on this rank's shard.
+
+    The exchange, draws and update are ``make_sharded_step_fn``'s without
+    overlap, with the frontier additions of the reference: after the
+    exchange, a local vertex with an edge whose looked-up dst label differs
+    from the previous iteration's lookup becomes active (over every
+    ``bind.frontier`` segment, in the plan's lookup index: global ids for
+    allgather and delta, ``[local | halo]`` slots for the halo plans);
+    ``valid`` is ``real & active``; the drain (``halted``) is a rank-summed
+    count of vertices that want to move, equal to 0; the next active set is
+    the pre-throttle ``want`` mask.  ``scored`` is the f32 rank-summed
+    count of ``valid``, the same on every rank.  Fused (``fused=True``):
+    ``scores`` is the backend's frontier form, which also returns
+    ``want``.
+    """
+    eps = float(np.float32(cfg.eps))
+    propose, finish = make_update_parts(
+        cfg.k, degree_weighted=cfg.migration_weighting == "edges",
+        current_bonus=cfg.current_bonus)
+    reduce_ = make_rank_sum(comm)
+    draws = _sharded_draws(cfg, comm, v_local, noise_mode)
+
+    def step(state: SpinnerState, aux, active: torch.Tensor,
+             prev_lookup: torch.Tensor, bind: ShardBind):
+        key, k_it = rng.split(state.key)
+        labels, loads = state.labels, state.loads
+        lookup, aux, xbytes = plan.exchange(labels, aux, comm,
+                                            *bind.plan_args)
+        active = active | frontier_touched(lookup != prev_lookup,
+                                           bind.frontier, rows=v_local)
+        noise, u = draws(k_it, bind, labels.device)
+        fbind = bind._replace(valid=bind.valid & active)
+        valid = fbind.valid
+        if fused:
+            new_labels, new_loads, score_g, n_mig, mig_mass, want = scores(
+                lookup, labels, loads, noise, u, fbind, reduce_)
+        else:
+            parts = propose(scores(lookup, labels, bind), labels,
+                            bind.deg_w, loads, noise, valid, bind.capacity)
+            want = (parts[0] != labels) & valid
+            new_labels, new_loads, score_g, n_mig, mig_mass = finish(
+                *parts, labels, bind.deg_w, loads, u, valid, bind.capacity,
+                reduce_)
+        scored, n_want = reduce_([valid.to(torch.float32).sum(),
+                                  want.sum().to(torch.int32)])
+        best, stall, _ = _halting_update(
+            state.best_score, state.stall, score_g, eps, cfg.halt_window)
+        new_state = SpinnerState(
+            labels=new_labels, loads=new_loads, key=key, best_score=best,
+            stall=stall, iteration=state.iteration + 1, halted=n_want == 0,
+            total_messages=state.total_messages + mig_mass, score=score_g,
+            migrations=n_mig, message_mass=mig_mass,
+            exchanged_bytes=state.exchanged_bytes + xbytes)
+        return new_state, aux, want, lookup, scored
+
+    return step
+
+
 def _default_partition_mesh(device=None):
     """1-D mesh over the whole process group (a one-rank group on an
     in-process store when there is none), cached per device type."""
@@ -909,12 +1005,16 @@ _DEFAULT_MESH: dict = {}
 
 
 def _sharded_closures(backend, cfg, v_local: int, overlap: bool,
-                      fused: bool):
+                      fused: bool, frontier: bool = False):
     """The backend's sharded closure (or split pair) and the function that
     reads its arrays off a ``RankShard``."""
     k = cfg.k
     kw = dict(degree_weighted=cfg.migration_weighting == "edges",
               current_bonus=float(cfg.current_bonus))
+    if fused and frontier:
+        return (backend.make_sharded_fused_update(k, v_local, frontier=True,
+                                                  **kw),
+                backend.sharded_fused_graph_args)
     if fused and overlap:
         return (backend.make_sharded_fused_update_split(k, v_local, **kw),
                 backend.sharded_fused_graph_args_split)
@@ -929,7 +1029,8 @@ def _sharded_closures(backend, cfg, v_local: int, overlap: bool,
 
 
 def _sharded_parts(graph: Graph, cfg, opts: EngineOptions, mesh,
-                   axis: str = "data", single_step: bool = False):
+                   axis: str = "data", single_step: bool = False,
+                   frontier: bool = False):
     """Everything a sharded run on this rank needs: ``(layout, plan, step,
     bind, comm)``.
 
@@ -938,17 +1039,30 @@ def _sharded_parts(graph: Graph, cfg, opts: EngineOptions, mesh,
     and the backend's arrays.  The halo plans read the numpy
     ``ShardedGraph``; allgather and delta read only its sizes.
     ``single_step=True`` (the host-loop step) pins the aux-free allgather
-    plan and no overlap, as the reference's does.
+    plan and no overlap, as the reference's does.  ``frontier=True``
+    builds ``make_sharded_frontier_step_fn``'s step and the bind's
+    expansion segment (the whole shard); it pins no overlap (the expansion
+    needs the whole lookup before scoring) and the torch backend, and
+    raises ``ValueError`` for any other, as the reference does for all but
+    its XLA backend.
     """
-    from ..launch.mesh import mesh_device, mesh_group, mesh_rank, mesh_size
+    from ..launch.mesh import mesh_device
     from . import comm as comm_mod
     from .distributed import rank_shard, shard_geometry, shard_layout
     if single_step:
         opts = dataclasses.replace(opts, label_exchange="allgather",
                                    overlap="off")
-    ndev = mesh_size(mesh, axis)
-    comm = comm_mod.Comm(group=mesh_group(mesh, axis),
-                         rank=mesh_rank(mesh, axis), ndev=ndev)
+    if frontier:
+        opts = dataclasses.replace(opts, overlap="off")
+        name = getattr(opts.backend(), "name", opts.backend())
+        if name != "torch":
+            raise ValueError(
+                "frontier mode on the sharded engine requires the 'torch' "
+                "score backend (its (src_local, dst) edge lists double as "
+                "the frontier expansion index, as the reference's XLA "
+                f"backend's do); got {name!r}")
+    comm = comm_mod.mesh_comm(mesh, axis)
+    ndev = comm.ndev
     device = mesh_device(mesh)
     want = opts.resolved_device()
     if want.type != device.type:
@@ -973,7 +1087,8 @@ def _sharded_parts(graph: Graph, cfg, opts: EngineOptions, mesh,
         shard = rank_shard(padded, ndev, comm.rank, device)
     vl = shard.v_local
     backend = opts.backend()
-    scores, args_of = _sharded_closures(backend, cfg, vl, overlap, fused)
+    scores, args_of = _sharded_closures(backend, cfg, vl, overlap, fused,
+                                        frontier)
     bind = ShardBind(
         deg_w=shard.deg_w,
         capacity=torch.tensor(cfg.capacity(graph), dtype=torch.float32,
@@ -982,10 +1097,69 @@ def _sharded_parts(graph: Graph, cfg, opts: EngineOptions, mesh,
         num_real_local=min(max(num_real - shard.offset, 0), vl),
         valid=shard.offset + torch.arange(vl, device=device) < num_real,
         offset=shard.offset, score=tuple(args_of(shard)),
-        plan_args=tuple(plan.device_args(comm.rank, device)))
-    step = make_sharded_step_fn(cfg, comm, vl, plan, scores, noise_mode,
-                                overlap=overlap, fused=fused)
+        plan_args=tuple(plan.device_args(comm.rank, device)),
+        frontier=(shard.whole[1:3],) if frontier else ())
+    if frontier:
+        step = make_sharded_frontier_step_fn(cfg, comm, vl, plan, scores,
+                                             noise_mode, fused=fused)
+    else:
+        step = make_sharded_step_fn(cfg, comm, vl, plan, scores, noise_mode,
+                                    overlap=overlap, fused=fused)
     return sg, plan, step, bind, comm
+
+
+def run_sharded_bound(cfg, opts: EngineOptions, plan, step, bind: ShardBind,
+                      comm, state: SpinnerState,
+                      single_step: bool = False) -> SpinnerState:
+    """Run a state over the WHOLE padded label vector (the same on every
+    rank) to the stable state on a given rank bind (one iteration with
+    ``single_step``); the result's labels are all-gathered again.  The
+    session's fast path hands it the bind over base + delta segments."""
+    from .comm import gather_shards
+    vl, off = bind.deg_w.shape[0], bind.offset
+    local = state._replace(labels=state.labels[off:off + vl].contiguous())
+    aux = [plan.init_aux(local.labels, comm, *bind.plan_args)]
+
+    def advance(s: SpinnerState) -> SpinnerState:
+        s, aux[0] = step(s, aux[0], bind)
+        return s
+
+    if single_step:
+        out = advance(local)
+    else:
+        out = _chunk_loop(cfg, local, advance,
+                          opts.chunk_size or DEFAULT_CHUNK)[0]
+    return out._replace(labels=gather_shards(out.labels, comm))
+
+
+def sharded_frontier_loop(cfg, plan, step, bind: ShardBind, comm,
+                          state: SpinnerState, active: torch.Tensor
+                          ) -> Tuple[SpinnerState, List[float]]:
+    """Run a state over the WHOLE padded label vector in frontier mode
+    until it drains (or reaches ``max_iters``); ``active`` is the padded
+    mask, the same on every rank.  Returns ``(state, scored_per_iteration)``
+    with the labels all-gathered again.
+
+    The loop starts with ``plan.prime`` (the lookup of the initial labels,
+    whose bytes count into ``exchanged_bytes``); then, as ``frontier_loop``
+    does, the host reads the replicated drain flag and the scored count
+    once per iteration, so every rank stops at the same iteration and
+    nothing is launched after the drain.
+    """
+    from .comm import gather_shards
+    vl, off = bind.deg_w.shape[0], bind.offset
+    state = state._replace(labels=state.labels[off:off + vl].contiguous())
+    lookup, aux, b0 = plan.prime(state.labels, comm, *bind.plan_args)
+    state = state._replace(exchanged_bytes=state.exchanged_bytes + b0)
+    carry = [aux, active[off:off + vl], lookup]
+
+    def advance(s: SpinnerState):
+        s, aux, act, lookup, count = step(s, *carry, bind)
+        carry[:] = [aux, act, lookup]
+        return s, count
+
+    state, scored = _drain_loop(cfg, state, advance)
+    return state._replace(labels=gather_shards(state.labels, comm)), scored
 
 
 def make_sharded_runner(graph: Graph, cfg, mesh, axis: str = "data",
@@ -1002,29 +1176,16 @@ def make_sharded_runner(graph: Graph, cfg, mesh, axis: str = "data",
     every rank cuts its chunks at the same iterations: the halting state
     is replicated by construction.
     """
-    from .comm import gather_shards
     opts = opts if opts is not None else EngineOptions()
     sg, plan, step, bind, comm = _sharded_parts(graph, cfg, opts, mesh, axis,
                                                 single_step)
-    vl, off = sg.v_per_dev, bind.offset
-    chunk = opts.chunk_size or DEFAULT_CHUNK
 
     def runner(state: SpinnerState) -> SpinnerState:
         if state.labels.shape[0] != sg.num_vertices:
             raise ValueError(f"state.labels has {state.labels.shape[0]} "
                              f"entries, the sharded layout {sg.num_vertices}")
-        local = state._replace(labels=state.labels[off:off + vl].contiguous())
-        aux = [plan.init_aux(local.labels, comm, *bind.plan_args)]
-
-        def advance(s: SpinnerState) -> SpinnerState:
-            s, aux[0] = step(s, aux[0], bind)
-            return s
-
-        if single_step:
-            out = advance(local)
-        else:
-            out = _chunk_loop(cfg, local, advance, chunk)[0]
-        return out._replace(labels=gather_shards(out.labels, comm))
+        return run_sharded_bound(cfg, opts, plan, step, bind, comm, state,
+                                 single_step)
 
     runner.v_pad = sg.num_vertices
     return runner
@@ -1055,3 +1216,27 @@ def run_sharded(graph: Graph, cfg, labels, loads, key: rng.Key,
     state = init_state(pad_labels(labels, runner.v_pad),
                        torch.as_tensor(loads).to(dev), key)
     return runner(state)
+
+
+def run_sharded_frontier(graph: Graph, cfg, labels, loads, key: rng.Key,
+                         active, mesh=None, axis: str = "data",
+                         opts: Optional[EngineOptions] = None
+                         ) -> Tuple[SpinnerState, List[float]]:
+    """Sharded frontier-mode run to drain over ``mesh`` (``None``: the
+    default mesh): ``(state, scored_per_iteration)``.  ``active`` is a bool
+    mask over the real vertex set; the returned state carries the PADDED
+    labels of the sharded layout, the same on every rank.  Pins no
+    overlap; on another score backend than ``"torch"`` it raises
+    ``ValueError``."""
+    from ..launch.mesh import mesh_device
+    opts = opts if opts is not None else EngineOptions()
+    if mesh is None:
+        mesh = _default_partition_mesh(opts.device)
+    sg, plan, step, bind, comm = _sharded_parts(graph, cfg, opts, mesh, axis,
+                                                frontier=True)
+    dev = mesh_device(mesh)
+    labels = torch.as_tensor(labels, dtype=torch.int32).to(dev)
+    state = init_state(pad_labels(labels, sg.num_vertices),
+                       torch.as_tensor(loads).to(dev), key)
+    return sharded_frontier_loop(cfg, plan, step, bind, comm, state,
+                                 _pad_active(active, sg.num_vertices, dev))

@@ -2,8 +2,9 @@
 
 Watts-Strogatz small worlds are the paper's scalability workload (Section
 5.2); preferential-attachment power-law graphs give hub structure; the
-planted-partition graph has known communities.  Same seeds, same graphs
-as the reference package.
+planted-partition graph has known communities; the 2-D grid is an oracle
+whose good cuts are known; Erdos-Renyi graphs have no structure at all.
+Same seeds, same graphs as the reference package.
 """
 from __future__ import annotations
 
@@ -63,6 +64,27 @@ def powerlaw_ba(n: int, m: int, seed: int = 0) -> Graph:
                                np.full(targets.shape[0], t, dtype=np.int64)])
     src = np.concatenate(src_list)
     dst = np.concatenate(dst_list)
+    return from_edges(src.astype(np.int32), dst.astype(np.int32), n,
+                      directed=False)
+
+
+def grid_2d(rows: int, cols: int) -> Graph:
+    """4-connected grid; the partitioning oracle (good cuts are known)."""
+    idx = np.arange(rows * cols, dtype=np.int64).reshape(rows, cols)
+    right = np.stack([idx[:, :-1].ravel(), idx[:, 1:].ravel()])
+    down = np.stack([idx[:-1, :].ravel(), idx[1:, :].ravel()])
+    src = np.concatenate([right[0], down[0]])
+    dst = np.concatenate([right[1], down[1]])
+    return from_edges(src.astype(np.int32), dst.astype(np.int32),
+                      rows * cols, directed=False)
+
+
+def erdos_renyi(n: int, avg_deg: float, seed: int = 0) -> Graph:
+    """G(n, m) with m = n * avg_deg / 2 uniform undirected pairs."""
+    rng = np.random.default_rng(seed)
+    m = int(n * avg_deg / 2)
+    src = rng.integers(0, n, size=m)
+    dst = rng.integers(0, n, size=m)
     return from_edges(src.astype(np.int32), dst.astype(np.int32), n,
                       directed=False)
 

@@ -57,6 +57,18 @@ def score_global(graph: Graph, labels: np.ndarray, k: int, c: float) -> float:
     return float((norm - pen[labels]).sum())
 
 
+def partitioning_difference(labels_a: np.ndarray,
+                            labels_b: np.ndarray) -> float:
+    """Fraction of vertices whose partition differs (Section 5.4): how much
+    an adapt moved."""
+    a = np.asarray(labels_a)
+    b = np.asarray(labels_b)
+    if a.shape != b.shape:
+        raise ValueError(f"label vectors differ in shape: {a.shape} vs "
+                         f"{b.shape}")
+    return float((a != b).mean()) if a.size else 0.0
+
+
 def comm_volume(graph: Graph, labels: np.ndarray, k: int) -> np.ndarray:
     """Per-partition remote-neighbour count: entry ``l`` counts the
     directed adjacency entries whose source is in partition ``l`` and

@@ -23,14 +23,22 @@ previous stable labels (``adapt``/``resize`` default to them) and, once an
 
 On a mesh (``EngineOptions(mesh=...)`` or ``engine="sharded"``) every
 process of the mesh opens the same session and makes the same calls:
-``partition``, ``adapt(new_graph)``, ``resize`` and ``update`` run the
+``partition``, ``adapt``, ``resize``, ``update`` and ``run_app`` run the
 sharded engine, and ``stats()`` adds the exchange plan's volumes under
-``"exchange"``.  There ``adapt(edge_updates=)`` takes the fallback rebuild
-on the CUDA backend (its shards are rebuilt from the host graph, as the
-reference's Pallas backend retiles on the host); on the torch backend,
-where the reference merges the delta into its sharded arrays, it raises
-``NotImplementedError`` (not ported yet), as do ``adapt(frontier=True)``
-and ``run_app``.
+``"exchange"``.  The delta fast path there merges each rank's share of a
+batch into a delta segment over its rows (``core.delta``'s sharded mode)
+and restarts the sharded runner -- or, with ``frontier=True``, the sharded
+frontier runner (``engine.run_sharded_frontier``'s loop) -- over base and
+delta segments.  Eligible: the torch backend (the counterpart of the
+reference's XLA backend) with ``overlap`` off and the allgather or delta
+plan; the CUDA backend's shards are rebuilt from the host graph, as the
+reference's Pallas backend retiles on the host, and its
+``adapt(frontier=True)`` raises ``ValueError`` as the reference's does.
+The halo plans fall back too: their dst are ``[local | halo]`` slots, and a
+delta entry would need a halo slot the plan does not have.  The reference
+takes its fast path under ``halo_delta`` and writes global ids into those
+slots, which gives another result than its own rebuild (ROADMAP.md §3);
+the port keeps the rebuild's result.
 
 Compile accounting has no counterpart here: PyTorch runs eagerly and the
 kernels are built once per source hash, so nothing compiles per graph.
@@ -80,8 +88,6 @@ from .incremental import elastic_relabel, extend_labels
 from .spinner import PartitionResult, SpinnerConfig, prepare_init
 
 _ENGINES = ("auto", "fused", "sharded", "chunked", "host")
-_MESH_TODO = ("is not ported to the sharded engine yet (ROADMAP.md "
-              "Slice D)")
 
 # The one closed-session error, shared by every entry point: a serving tier
 # retires sessions aggressively and matches on this message, so it must not
@@ -96,7 +102,8 @@ class _DeltaFast:
 
     Built lazily on the first eligible ``adapt(edge_updates=...)`` -- the
     one O(E) cold cost (the pair-key index).  ``merged`` counts the prefix
-    of the session's pending log already merged into ``dd``.
+    of the session's pending log already merged into ``dd``.  On a mesh
+    ``dd`` is this rank's segment and ``v_pad`` the sharded layout's.
     """
 
     tracker: _delta.DeltaTracker
@@ -262,8 +269,6 @@ class PartitionSession:
         self._check_open()
         if new_graph is not None and edge_updates is not None:
             raise ValueError("pass at most one of new_graph/edge_updates")
-        if frontier and self._mesh is not None:
-            raise NotImplementedError("adapt(frontier=True) " + _MESH_TODO)
         batch = None
         if edge_updates is not None:
             e_src, e_dst = edge_updates
@@ -434,11 +439,10 @@ class PartitionSession:
                 return False            # the CUDA shards rebuild on the host
             if opts.resolved_overlap(ndev) == "on":
                 return False            # overlap's split arrays differ
-            if opts.resolved_label_exchange(ndev) == "halo":
-                return False            # halo dst slots aren't global ids
-            raise NotImplementedError(
-                "the delta merge into the sharded arrays (the reference's "
-                "init_sharded_xla) " + _MESH_TODO)
+            # halo dst slots aren't global ids; the reference refuses only
+            # "halo" and gets halo_delta wrong (ROADMAP.md §3)
+            return opts.resolved_label_exchange(ndev) not in ("halo",
+                                                              "halo_delta")
         if opts.engine not in ("auto", "fused"):
             return False                # chunked/host replay per-iteration
         if opts.engine == "auto" and record_history is not False:
@@ -458,10 +462,18 @@ class PartitionSession:
         graph = self._graph
         self._note_upload(graph)
         padded, _ = _engine.padded_view(graph, self.options)
+        tracker = _delta.DeltaTracker(graph)
+        if self._mesh is not None:
+            from .distributed import segment_widths
+            sg, _, _, bind, comm = _engine._sharded_parts(
+                graph, self.cfg, self.options, self._mesh, self.options.axis)
+            dd = _delta.init_sharded_csr(
+                bind.deg_w, comm.rank,
+                segment_widths(padded, comm.ndev, pad=True))
+            return _DeltaFast(tracker=tracker, dd=dd, v_pad=sg.num_vertices)
         dd = _delta.init_single_csr(padded.to_device(self._device),
                                     graph.num_directed_entries)
-        return _DeltaFast(tracker=_delta.DeltaTracker(graph), dd=dd,
-                          v_pad=padded.num_vertices)
+        return _DeltaFast(tracker=tracker, dd=dd, v_pad=padded.num_vertices)
 
     def _fast_prepare(self, e_src, e_dst, prev, record_history,
                       callback) -> Optional[tuple]:
@@ -496,7 +508,16 @@ class PartitionSession:
         labels_p = _engine.pad_labels(
             torch.from_numpy(np.ascontiguousarray(prev)).to(self._device),
             fs.v_pad)
-        loads = _engine.device_loads(labels_p, fs.dd.deg_w, self.cfg.k)
+        if self._mesh is None:
+            loads = _engine.device_loads(labels_p, fs.dd.deg_w, self.cfg.k)
+        else:
+            from .comm import mesh_comm
+            # each rank's rows, summed over the ranks (integer sums: exact)
+            lo, vl = fs.dd.rank * fs.dd.v_per_dev, fs.dd.v_per_dev
+            loads, = _engine.make_rank_sum(
+                mesh_comm(self._mesh, self.options.axis))([
+                    _engine.device_loads(labels_p[lo:lo + vl], fs.dd.deg_w,
+                                         self.cfg.k)])
         return fs, _engine.init_state(labels_p, loads, key)
 
     def _fast_bind(self, fs: _DeltaFast,
@@ -538,16 +559,47 @@ class PartitionSession:
             return None
         fs, state = out
         cfg, opts = self.cfg, self.options
-        bind = self._fast_bind(fs, bool(frontier))
-        if frontier:
-            state, hist = _engine.frontier_loop(
-                cfg, opts, state, self._active_mask(fs.v_pad), bind)
+        active = self._active_mask(fs.v_pad) if frontier else None
+        if self._mesh is not None:
+            state, hist = self._fast_sharded(fs, state, active)
+            eng = "sharded"
         else:
-            state, hist = _engine.run_bound(cfg, opts, state, bind), None
-        res = self._finish_state(state, self._graph.num_vertices, "fused",
-                                 hist)
+            bind = self._fast_bind(fs, bool(frontier))
+            if frontier:
+                state, hist = _engine.frontier_loop(cfg, opts, state, active,
+                                                    bind)
+            else:
+                state, hist = _engine.run_bound(cfg, opts, state, bind), None
+            eng = "fused"
+        res = self._finish_state(state, self._graph.num_vertices, eng, hist)
         self._dirty = None
         return res
+
+    def _fast_sharded(self, fs: _DeltaFast, state, active):
+        """The fast path's run on a mesh: the sharded runner (or, with an
+        ``active`` mask, the sharded frontier loop) over this rank's bind
+        with the merged delta segment added -- its degrees, its entries
+        in the score arrays and the expansion segments -- and the capacity
+        of the tracked total weight."""
+        cfg, opts, dd = self.cfg, self.options, fs.dd
+        frontier = active is not None
+        _, plan, step, bind, comm = _engine._sharded_parts(
+            self._graph, cfg, opts, self._mesh, opts.axis,
+            frontier=frontier)
+        score, expand = bind.score, bind.frontier
+        if dd.num_entries:
+            score += tuple(opts.backend().delta_args(dd))
+            if frontier:
+                expand += ((dd.src, dd.dst),)
+        bind = bind._replace(
+            deg_w=dd.deg_w, score=score, frontier=expand,
+            capacity=torch.tensor(cfg.c * fs.tracker.total_weight / cfg.k,
+                                  dtype=torch.float32, device=self._device))
+        if frontier:
+            return _engine.sharded_frontier_loop(cfg, plan, step, bind, comm,
+                                                 state, active)
+        return _engine.run_sharded_bound(cfg, opts, plan, step, bind, comm,
+                                         state), None
 
     def _active_mask(self, v_pad: int) -> torch.Tensor:
         active = np.zeros(v_pad, bool)
@@ -588,14 +640,21 @@ class PartitionSession:
         graph, opts, cfg = self.graph, self.options, self.cfg
         if opts.engine in ("chunked", "host"):
             raise ValueError(
-                f"frontier=True requires a while_loop engine (fused/auto), "
-                f"not engine={opts.engine!r}")
+                f"frontier=True requires a while_loop engine (fused/"
+                f"sharded/auto), not engine={opts.engine!r}")
         labels, loads, key = prepare_init(graph, cfg, init,
                                           device=self._device)
         self._note_upload(graph)
-        state, hist = _engine.run_frontier(graph, cfg, labels, loads, key,
-                                           active, opts)
-        res = self._finish_state(state, graph.num_vertices, "fused", hist)
+        if self._mesh is not None:
+            state, hist = _engine.run_sharded_frontier(
+                graph, cfg, labels, loads, key, active, mesh=self._mesh,
+                axis=opts.axis, opts=opts)
+            eng = "sharded"
+        else:
+            state, hist = _engine.run_frontier(graph, cfg, labels, loads,
+                                               key, active, opts)
+            eng = "fused"
+        res = self._finish_state(state, graph.num_vertices, eng, hist)
         self._dirty = None
         return res
 

@@ -10,7 +10,10 @@ vertex update, which returns the whole iteration's outputs (plus the
 frontier's ``real & active`` mask).  A session's on-device delta
 (``core.delta``) appends a second edge segment to the arg tuple
 (``delta_args``): both backends' fused forms read it, and so does the
-scatter backend's split form.
+scatter backend's split form.  On a mesh the scatter backend's sharded
+forms read a rank's delta segment the same way (``bind.score[3:]``), and
+its fused form takes ``frontier=True`` for the sharded frontier runner;
+the ``"cuda"`` backend's sharded forms read no delta segment.
 
 The sharded engine calls each backend's sharded forms on one rank's shard
 (``core.distributed.RankShard``, read by ``sharded_graph_args`` and
@@ -93,8 +96,9 @@ class TorchScatterBackend:
 
     def make_sharded_scores(self, k: int, v_local: int) -> Callable:
         def scores(lookup, labels, bind):
-            src, dst, w = bind.score
-            return ref.spinner_scores_ref(lookup, src, dst, w, v_local, k)
+            src, dst, w = bind.score[:3]
+            return ref.spinner_scores_ref(lookup, src, dst, w, v_local, k,
+                                          bind.score[3:])
         return scores
 
     def sharded_graph_args(self, shard) -> tuple:
@@ -117,7 +121,8 @@ class TorchScatterBackend:
 
     def make_sharded_fused_update(self, k: int, v_local: int, *,
                                   degree_weighted: bool,
-                                  current_bonus: float) -> Callable:
+                                  current_bonus: float,
+                                  frontier: bool = False) -> Callable:
         from ..core.engine import make_update_parts   # lazy: no cycle
         propose, finish = make_update_parts(
             k, degree_weighted=degree_weighted, current_bonus=current_bonus)
@@ -127,8 +132,13 @@ class TorchScatterBackend:
             scores = scores_fn(lookup, labels, bind)
             parts = propose(scores, labels, bind.deg_w, loads, noise,
                             bind.valid, bind.capacity)
-            return finish(*parts, labels, bind.deg_w, loads, u, bind.valid,
-                          bind.capacity, reduce_)
+            out = finish(*parts, labels, bind.deg_w, loads, u, bind.valid,
+                         bind.capacity, reduce_)
+            if frontier:
+                # the frontier runner carries the pre-throttle want mask
+                # forward as the next active set and detects the drain
+                return out + ((parts[0] != labels) & bind.valid,)
+            return out
         return fused
 
     def sharded_fused_graph_args(self, shard) -> tuple:

@@ -256,8 +256,8 @@ def test_halved_weights_match_reference(halved_runs, backend, fused):
 
 def test_imports_neither_jax_nor_reference():
     """The port (its application layer, session, mesh, exchange plans,
-    sharded layout and distributed PageRank too) and chip_smoke.py load
-    without JAX or ``repro``."""
+    sharded layout, distributed PageRank and placement too) and
+    chip_smoke.py load without JAX or ``repro``."""
     code = (
         "import sys; sys.path.insert(0, 'src'); sys.path.insert(0, '.')\n"
         "import repro_torch, repro_torch.core, repro_torch.kernels\n"
@@ -265,7 +265,7 @@ def test_imports_neither_jax_nor_reference():
         "import repro_torch.core.session, repro_torch.core.delta\n"
         "import repro_torch.core.incremental, repro_torch.launch.mesh\n"
         "import repro_torch.core.comm, repro_torch.core.distributed\n"
-        "import repro_torch.core.pregel_dist\n"
+        "import repro_torch.core.pregel_dist, repro_torch.core.placement\n"
         "import repro_torch.convert, repro_torch.rng, chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"

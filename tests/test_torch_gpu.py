@@ -20,7 +20,7 @@ from repro_torch import rng
 from repro_torch.apps import build_app_layout, run_app
 from repro_torch.core import (EngineOptions, SpinnerConfig, delta,
                               distributed, engine, generators, open_session,
-                              partition)
+                              partition, prepare_init)
 from repro_torch.core.graph import _finish
 from repro_torch.kernels import ref
 from repro_torch.kernels.ops import CudaCsrBackend
@@ -440,6 +440,89 @@ def test_sharded_partition_on_card_matches_cpu(cuda, plan, overlap):
         assert (card.iterations, card.halted) == (other.iterations,
                                                   other.halted)
     assert card.exchanged_bytes == 0.0
+
+
+def _mesh_session(dev, plan: str, fused: str = "off",
+                  backend: str = "torch"):
+    g = generators.watts_strogatz(3000, 10, 0.25, seed=7)
+    mesh = make_partition_mesh(1, device=None if dev != "cpu" else "cpu")
+    return g, open_session(g, SpinnerConfig(k=8, seed=3), EngineOptions(
+        device=dev, mesh=mesh, label_exchange=plan, overlap="off",
+        fused_update=fused, score_backend=backend))
+
+
+@pytest.mark.parametrize("plan", ["allgather", "halo", "halo_delta",
+                                  "delta"])
+@pytest.mark.parametrize("fused", ["on", "off"])
+def test_sharded_frontier_on_card_matches_cpu(cuda, plan, fused):
+    """The sharded frontier runner on a one-rank NCCL group, from the
+    converged labels with 5% of the vertices active, walks the CPU run's
+    trajectory: labels, loads, iterations and scored counts (it runs to
+    ``max_iters``: vertices that want to move but are throttled keep it
+    from draining)."""
+    g = generators.watts_strogatz(3000, 10, 0.25, seed=7)
+    cfg = SpinnerConfig(k=8, seed=3, max_iters=40)
+    base = partition(g, cfg, device="cpu").labels
+    active = np.random.default_rng(2).random(3000) < 0.05
+    runs = []
+    for dev, mesh in ((cuda, make_partition_mesh(1)),
+                      ("cpu", make_partition_mesh(device="cpu"))):
+        opts = EngineOptions(device=dev, label_exchange=plan,
+                             fused_update=fused, score_backend="torch")
+        labels, loads, key = prepare_init(g, cfg, base, device=dev)
+        state, scored = engine.run_sharded_frontier(
+            g, cfg, labels, loads, key, active, mesh=mesh, opts=opts)
+        runs.append((state, scored))
+    (a, sa), (b, sb) = runs
+    assert torch.equal(a.labels.cpu(), b.labels)
+    assert torch.equal(a.loads.cpu(), b.loads)
+    assert (int(a.iteration), bool(a.halted), sa) == (
+        int(b.iteration), bool(b.halted), sb)
+
+
+@pytest.mark.parametrize("plan", ["allgather", "delta", "halo_delta"])
+def test_session_mesh_fast_path_on_card_matches_cpu(cuda, plan):
+    """The session on a one-rank NCCL group: partition, a frontier adapt
+    and a dense adapt equal the CPU mesh session's, with the same delta
+    counters (fast for allgather and delta, the fallback for
+    halo_delta)."""
+    gen = np.random.default_rng(0)
+    b1 = (gen.integers(0, 3000, 40), gen.integers(0, 3000, 40))
+    b2 = (gen.integers(0, 3000, 80), gen.integers(0, 3000, 80))
+    runs = {}
+    for dev in (cuda, "cpu"):
+        _, s = _mesh_session(dev, plan)
+        runs[str(dev)] = (s.partition(),
+                          s.adapt(edge_updates=b1, frontier=True),
+                          s.adapt(edge_updates=b2), s.stats()["delta"])
+    got, want = runs[str(cuda)], runs["cpu"]
+    for a, b in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(a.labels, b.labels)
+        np.testing.assert_array_equal(a.loads, b.loads)
+        assert (a.iterations, a.halted, a.scored_per_iter, a.engine) == (
+            b.iterations, b.halted, b.scored_per_iter, b.engine)
+    assert got[3] == want[3]
+    assert got[3]["fast_adapts"] == (0 if plan == "halo_delta" else 2)
+
+
+def test_cuda_backend_sharded_frontier_raises_on_card(cuda):
+    _, s = _mesh_session(cuda, "allgather", backend="cuda")
+    s.partition()
+    with pytest.raises(ValueError, match="'torch' score backend"):
+        s.adapt(edge_updates=([0], [9]), frontier=True)
+
+
+def test_placement_on_card_matches_cpu(cuda):
+    from repro_torch.core import placement
+    card = placement.expert_placement_case(n_tokens=4000)
+    cpu = placement.expert_placement_case(n_tokens=4000, device="cpu")
+    np.testing.assert_array_equal(card[1], cpu[1])
+    assert card[2] == cpu[2]
+    costs = np.random.default_rng(3).random(40) + 0.5
+    got = placement.place_pipeline_stages(costs, 4)
+    want = placement.place_pipeline_stages(costs, 4, device="cpu")
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1] == want[1]
 
 
 # ---- the row-group kernels (K3 and K1) on the shapes their design must

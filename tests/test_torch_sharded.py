@@ -20,7 +20,6 @@ import numpy as np
 import pytest
 import torch
 
-from repro.apps import run_app as ref_run_app
 from repro.core import EngineOptions as RefOptions
 from repro.core import SpinnerConfig as RefConfig
 from repro.core import comm as ref_comm
@@ -333,8 +332,8 @@ def test_session_on_mesh_matches_reference(graphs, meshes, overlap):
     _same(ps.resize(6), rs.resize(6))
     # the CUDA backend's edge_updates take the fallback rebuild, as the
     # reference's Pallas backend does on a mesh; the reference's XLA
-    # backend merges on the device without overlap (the port's torch
-    # backend raises there: test_session_mesh_paths_not_ported_raise)
+    # backend merges on the device without overlap, and so does the port's
+    # torch backend (test_session_mesh_fast_paths_match_reference)
     batch = (gen.integers(0, 420, 12), gen.integers(0, 420, 12))
     _same(ps.adapt(edge_updates=batch), rs.adapt(edge_updates=batch))
     pd, rd = ps.stats(), rs.stats()
@@ -353,17 +352,30 @@ def test_session_on_mesh_matches_reference(graphs, meshes, overlap):
 
 
 def test_session_mesh_paths_not_ported_raise(graphs, meshes):
-    pg = graph_from_reference(graphs["ws"])
+    """The mesh paths this port has: a fast adapt and a frontier adapt on
+    the session's mesh equal the reference's on its 1-device mesh, and
+    run_app on the mesh too; the one it lacks, the cluster bootstrap's
+    loading path (Slice F), still raises."""
+    g = graphs["ws"]
+    pg = graph_from_reference(g)
     s = open_session(pg, SpinnerConfig(k=4), EngineOptions(
         device="cpu", mesh=meshes[1], score_backend="torch", overlap="off"))
-    s.partition()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        s.adapt(edge_updates=([0], [5]))          # the sharded fast path
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        s.adapt(edge_updates=([0], [7]), frontier=True)
-    # run_app on the session's mesh: the reference's on its 1-device mesh
+    rs = ref_open(g, RefConfig(k=4), RefOptions(mesh=meshes[0],
+                                                overlap="off"))
+    _same(s.partition(), rs.partition())
+    for batch, frontier in ((([0], [5]), False), (([0], [7]), True)):
+        got = s.adapt(edge_updates=batch, frontier=frontier)
+        want = rs.adapt(edge_updates=batch, frontier=frontier)
+        _same(got, want)
+        assert got.scored_per_iter == want.scored_per_iter
+        assert got.engine == want.engine == "sharded"
+    d, rd = s.stats()["delta"], rs.stats()["delta"]
+    assert d["fast_adapts"] == rd["fast_adapts"] == 2
+    assert d["host_rebuilds"] == rd["host_rebuilds"] == 0
+    # run_app on the session's mesh (its graph now holds both batches): the
+    # reference session's on its 1-device mesh
     app = s.run_app("wcc")
-    want = ref_run_app(graphs["ws"], s.labels, "wcc", mesh=meshes[0])
+    want = rs.run_app("wcc")
     assert (app.plan, app.ndev, app.supersteps, app.wire_bytes) == (
         want.plan, want.ndev, want.supersteps, want.wire_bytes)
     np.testing.assert_array_equal(app.values, want.values)
@@ -394,3 +406,149 @@ def test_cuda_mesh_needs_nccl(meshes):
     else:
         with pytest.raises(ValueError, match="NCCL"):
             mesh_group(mesh)
+
+
+# ---------------------------------------------------------------------------
+# continuous partitioning on a mesh: the sharded frontier runner and the
+# session's delta fast path
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def converged(graphs, meshes):
+    """The ws graph's converged labels (the reference's sharded run)."""
+    g = graphs["ws"]
+    return np.array(ref_partition(
+        g, RefConfig(**CFG), record_history=False, engine="sharded",
+        mesh=meshes[0], options=RefOptions(label_exchange="allgather")
+    ).labels)
+
+
+@pytest.mark.parametrize("plan", PLANS)
+@pytest.mark.parametrize("fused", ["on", "off"])
+@pytest.mark.parametrize("noise", ["replicated", "folded"])
+def test_run_sharded_frontier_matches_reference(graphs, meshes, converged,
+                                                plan, fused, noise):
+    """From converged labels with 5% of the vertices active, to the drain:
+    labels, loads, iterations, halted, exchanged bytes and the per-
+    iteration scored counts bit for bit."""
+    g = graphs["ws"]
+    pg = graph_from_reference(g)
+    cfg = dict(CFG, seed=5)
+    active = np.random.default_rng(4).random(g.num_vertices) < 0.05
+    ro = RefOptions(label_exchange=plan, fused_update=fused,
+                    sharded_noise=noise, score_backend="xla")
+    labels, loads, key = ref_prepare_init(g, RefConfig(**cfg), converged)
+    want, hist = ref_engine.run_sharded_frontier(
+        g, RefConfig(**cfg), labels, loads, key, active, mesh=meshes[0],
+        opts=ro)
+    po = EngineOptions(device="cpu", label_exchange=plan, fused_update=fused,
+                       sharded_noise=noise, score_backend="torch")
+    labels, loads, key = prepare_init(pg, SpinnerConfig(**cfg), converged,
+                                      device="cpu")
+    got, scored = engine.run_sharded_frontier(
+        pg, SpinnerConfig(**cfg), labels, loads, key, active,
+        mesh=meshes[1], opts=po)
+    iters = int(want.iteration)
+    assert bool(want.halted) and iters < cfg["max_iters"]   # it drained
+    np.testing.assert_array_equal(got.labels.numpy(), np.asarray(want.labels))
+    np.testing.assert_array_equal(got.loads.numpy(), np.asarray(want.loads))
+    for f in ("iteration", "halted", "exchanged_bytes", "total_messages",
+              "stall", "migrations"):
+        assert getattr(got, f).item() == np.asarray(getattr(want, f)).item(), f
+    assert scored == [float(x) for x in np.asarray(hist)[:iters]]
+
+
+def test_sharded_frontier_needs_the_torch_backend(graphs, meshes):
+    """The CUDA backend refuses the sharded frontier runner, as the
+    reference's Pallas backend does, naming the torch backend; so does a
+    session's adapt(frontier=True) on a mesh (after its fallback
+    rebuild)."""
+    pg = graph_from_reference(graphs["ws"])
+    labels, loads, key = prepare_init(pg, SpinnerConfig(**CFG), device="cpu")
+    with pytest.raises(ValueError, match="'torch' score backend"):
+        engine.run_sharded_frontier(
+            pg, SpinnerConfig(**CFG), labels, loads, key,
+            np.ones(pg.num_vertices, bool), mesh=meshes[1],
+            opts=EngineOptions(device="cpu", score_backend="cuda"))
+    s = open_session(pg, SpinnerConfig(**CFG), EngineOptions(
+        device="cpu", mesh=meshes[1], score_backend="cuda", overlap="off"))
+    s.partition()
+    with pytest.raises(ValueError, match="'torch' score backend"):
+        s.adapt(edge_updates=([0], [9]), frontier=True)
+    assert s.stats()["delta"]["fallback_adapts"] == 1
+
+
+@pytest.mark.parametrize("plan", PLANS)
+@pytest.mark.parametrize("fused", ["on", "off"])
+def test_session_mesh_fast_paths_match_reference(graphs, meshes, plan,
+                                                 fused):
+    """At world size 1: the delta fast path on a mesh, dense and then
+    frontier, against the reference's -- results, scored counts and the
+    delta counters.  allgather and delta take the fast path on both sides;
+    halo falls back on both; halo_delta falls back in the port only (the
+    reference's fast path there is wrong beyond one device, ROADMAP.md
+    §3), with the same results at world size 1."""
+    g = graphs["clustered"]
+    pg = graph_from_reference(g)
+    cfg = dict(k=4, max_iters=83, seed=9, c=1.6)
+    gen = np.random.default_rng(3)
+    batches = [(gen.integers(0, 4000, 20), gen.integers(0, 4000, 20))
+               for _ in range(2)]
+    rs = ref_open(g, RefConfig(**cfg), RefOptions(
+        mesh=meshes[0], label_exchange=plan, fused_update=fused,
+        overlap="off", score_backend="xla"))
+    ps = open_session(pg, SpinnerConfig(**cfg), EngineOptions(
+        device="cpu", mesh=meshes[1], label_exchange=plan,
+        fused_update=fused, overlap="off", score_backend="torch"))
+    _same(ps.partition(), rs.partition())
+    for batch, frontier in zip(batches, (False, True)):
+        got = ps.adapt(edge_updates=batch, frontier=frontier)
+        want = rs.adapt(edge_updates=batch, frontier=frontier)
+        _same(got, want)
+        assert got.scored_per_iter == want.scored_per_iter
+    pd, rd = ps.stats()["delta"], rs.stats()["delta"]
+    fast = plan in ("allgather", "delta")
+    for key in ("fast_adapts", "fallback_adapts", "host_rebuilds",
+                "watermark", "tracked_total_weight"):
+        if fast or plan == "halo":
+            assert pd[key] == rd[key], key
+    assert (pd["fast_adapts"], pd["fallback_adapts"]) == (
+        (2, 0) if fast else (0, 2))
+    if fast:     # 12 bytes an appended entry, as at one device
+        assert pd["upload_bytes_total"] % 12 == 0 and pd[
+            "upload_bytes_total"] > 0
+
+
+def test_one_rank_mesh_session_equals_single_device(graphs, meshes):
+    """The premise of the card's phase (j1): on a 1-device mesh the
+    reference's session gives its single-device session's results for
+    partition, a frontier fast adapt and a dense fast adapt -- and so does
+    the port's, against its own single-device session."""
+    g = graphs["powerlaw"]
+    pg = graph_from_reference(g)
+    cfg = dict(k=6, seed=4, max_iters=70)
+    gen = np.random.default_rng(8)
+    b1 = (gen.integers(0, 400, 6), gen.integers(0, 400, 6))
+    b2 = (gen.integers(0, 400, 40), gen.integers(0, 400, 40))
+    sessions = {
+        "ref_single": ref_open(g, RefConfig(**cfg), RefOptions(
+            engine="fused", score_backend="xla")),
+        "ref_mesh": ref_open(g, RefConfig(**cfg), RefOptions(
+            mesh=meshes[0], overlap="off", score_backend="xla")),
+        "single": open_session(pg, SpinnerConfig(**cfg), EngineOptions(
+            engine="fused", device="cpu", score_backend="torch")),
+        "mesh": open_session(pg, SpinnerConfig(**cfg), EngineOptions(
+            mesh=meshes[1], device="cpu", overlap="off",
+            score_backend="torch"))}
+    out = {}
+    for name, s in sessions.items():
+        out[name] = [s.partition(record_history=False),
+                     s.adapt(edge_updates=b1, frontier=True),
+                     s.adapt(edge_updates=b2)]
+        assert s.stats()["delta"]["fast_adapts"] == 2, name
+    for name in ("ref_mesh", "single", "mesh"):
+        for got, want in zip(out[name], out["ref_single"]):
+            np.testing.assert_array_equal(got.labels, np.asarray(want.labels))
+            np.testing.assert_array_equal(got.loads, np.asarray(want.loads))
+            assert (got.iterations, got.halted, got.scored_per_iter) == (
+                want.iterations, want.halted, want.scored_per_iter), name
