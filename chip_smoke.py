@@ -101,6 +101,22 @@ about 128 M directed CSR entries, k = 32):
       overflowing batch falling back, the CUDA backend's frontier adapt
       raising ``ValueError``; (j3) ``expert_placement_case()`` on the card
       identical to the CPU run;
+  (k) the serving tier (``repro_torch.serve``): (k1) eight same-bucket
+      tenants (``traffic.tenant_graph(200_000 + 17 i, seed=i, k_nbrs=16)``,
+      k = 32), one warm and three timed rounds in which every tenant
+      receives three 4,000-pair edge-update requests: naive serving (one
+      adapt per request), the scheduler serial and batched on the torch
+      backend, and the scheduler on the CUDA backend (serial, K1 once an
+      iteration); every ticket identical to a twin session (one adapt per
+      coalesced window, or per request for naive), one batched run a
+      round, no upload or host rebuild after the warm round; throughput,
+      coalescing, batched/serial ratio, occupancy, and one batched
+      iteration split beside the eight serial ones; (k2) an open-loop
+      Poisson replay over 16 power-law CUDA-backend tenants with the
+      default policies, drained with no error (latency p50/p99,
+      throughput, coalescing); (k3) export_state, checkpoint save and
+      restore, import_state into a fresh session: its next adapt
+      identical to the uninterrupted session's;
   (e) each kernel's achieved bytes/s (the bytes its bound counts over its
       measured time) beside its bound, then one JSON line describing each
       kernel.
@@ -1817,6 +1833,358 @@ def phase_placement(dev, smi: str, report: dict) -> None:
     report["placement"] = dict(stats, wall_s=wall)
 
 
+SERVE_TENANTS, SERVE_N, SERVE_BURST, SERVE_PAIRS = 8, 200_000, 3, 4_000
+SERVE_ROUNDS = 3                   # timed rounds after one warm round
+POISSON_DURATION, POISSON_RATE = 20.0, 0.25
+
+
+def _same_result(a, b) -> bool:
+    return (np.array_equal(a.labels, b.labels)
+            and np.array_equal(a.loads, b.loads)
+            and (a.iterations, a.halted) == (b.iterations, b.halted))
+
+
+def _serve_fleet(graphs, cfg, opts, stream, mode: str) -> dict:
+    """One (k1) mode over the request stream: ``naive`` drains after every
+    request (one adapt each, no batching); ``serial`` and ``batched``
+    queue each round's bursts, then drain (coalescing; batching only in
+    ``batched``); ``cuda`` is ``batched``'s scheduler on CUDA-backend
+    tenants (serial through K1).  Round 0 warms; the rest are timed."""
+    from repro_torch.kernels.spinner_scores import fused_update
+    from repro_torch.serve import PartitionScheduler
+
+    n = len(graphs)
+    sched = (PartitionScheduler(max_batch=1, batch_min=10 ** 9, policies=())
+             if mode == "naive" else PartitionScheduler(
+                 max_batch=n, batch_min=10 ** 9 if mode == "serial" else 2,
+                 policies=()))
+    for i, g in enumerate(graphs):
+        sched.add_tenant(f"t{i}", g, cfg, opts, partition=True)
+    k1_before = fused_update.launches
+    rounds, batched, wall = [], [], 0.0
+    for rnd, per_tenant in enumerate(stream):
+        if rnd == 1:
+            sched.mark()
+        before = sched.stats()["batched_dispatches"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tks = []
+        for i, bursts in enumerate(per_tenant):
+            tks.append([])
+            for b in bursts:
+                tks[-1].append(sched.submit(f"t{i}", "edge_updates",
+                                            edge_updates=b))
+                if mode == "naive":
+                    sched.drain()
+        sched.drain()
+        torch.cuda.synchronize()
+        if rnd:
+            wall += time.perf_counter() - t0
+        batched.append(sched.stats()["batched_dispatches"] - before)
+        rounds.append(tks)
+    st = sched.stats()
+    check(st["errors"] == 0 and st["queued"] == 0,
+          f"(k1) {mode}: {st['errors']} errors, {st['queued']} queued")
+    d = [t.session.stats()["delta"] for t in sched.tenants.values()]
+    iters = sum(tk.result.iterations for tks in rounds for row in tks
+                for tk in (row if mode == "naive" else row[-1:]))
+    return dict(rounds=rounds, batched=batched, stats=st, wall_s=wall,
+                requests=n * SERVE_BURST * (len(stream) - 1),
+                host_rebuilds=sum(x["host_rebuilds"] for x in d),
+                fallback_adapts=sum(x["fallback_adapts"] for x in d),
+                k1_launches=fused_update.launches - k1_before,
+                iterations=iters,
+                sessions=[t.session for t in sched.tenants.values()])
+
+
+def _serve_split(sessions, cfg, dev, smi: str) -> dict:
+    """One batched iteration of the torch fleet split into draws / scores
+    / epilogue, beside the same 8 tenants' serial iterations; from warm
+    work items (each session's next adapt, with its delta segment)."""
+    from repro_torch.core import delta, engine
+    from repro_torch.serve import traffic
+
+    gen = np.random.default_rng(99)
+    items, host = [], {"adapt_parts_ms": 0.0, "commit_ms": 0.0}
+    for s in sessions:
+        batch = delta.coalesce_updates([traffic.random_edge_updates(
+            s.stats()["num_vertices"], SERVE_PAIRS, gen)
+            for _ in range(SERVE_BURST)])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, b, c, o = s.adapt_parts(edge_updates=batch)
+        torch.cuda.synchronize()
+        host["adapt_parts_ms"] += (time.perf_counter() - t0) * 1e3
+        items.append((st, b, o))
+    opts = items[0][2]
+    state = engine.stack_states([st for st, _, _ in items])
+    bind = engine.stack_binds([b for _, b, _ in items])
+    keys = engine.chunk_keys([st.key for st, _, _ in items],
+                             range(len(items)), 1, dev)[0]
+    v_pad = state.labels.shape[1]
+    noise, u = engine.batched_draws(cfg, keys, v_pad)
+    scores = engine.batched_scores(state.labels, bind, cfg.k)
+    split = {
+        "draws_ms": time_ms(lambda: engine.batched_draws(cfg, keys, v_pad),
+                            reps=3, warmup=1),
+        "scores_ms": time_ms(lambda: engine.batched_scores(
+            state.labels, bind, cfg.k), reps=3, warmup=1),
+        "epilogue_ms": time_ms(lambda: engine.batched_update(
+            cfg, scores, state.labels, state.loads, noise, u, bind),
+            reps=3, warmup=1),
+        "step_ms": time_ms(lambda: engine._batched_step(cfg, state, keys,
+                                                         bind),
+                           reps=3, warmup=1),
+    }
+    del noise, u, scores
+    from repro_torch import rng
+    scores_fn = opts.backend().make_scores(cfg.k)
+    update = engine.make_vertex_update(cfg)
+    step = engine.make_step(cfg, opts)
+    serial = dict.fromkeys(("draws_ms", "scores_ms", "epilogue_ms",
+                            "step_ms"), 0.0)
+    for st, b, _ in items:
+        kn, km = rng.split(rng.split(st.key)[1])
+
+        def draws():
+            return (rng.uniform(kn, (v_pad, cfg.k), 0.0, cfg.tie_noise,
+                                device=dev),
+                    rng.uniform(km, (v_pad,), device=dev))
+
+        nz, uu = draws()
+        sc = scores_fn(st.labels, *b.score)
+        serial["draws_ms"] += time_ms(draws, reps=3, warmup=1)
+        serial["scores_ms"] += time_ms(lambda: scores_fn(st.labels,
+                                                         *b.score),
+                                       reps=3, warmup=1)
+        serial["epilogue_ms"] += time_ms(lambda: update(
+            sc, st.labels, b.deg_w, st.loads, nz, uu, b.valid, b.capacity),
+            reps=3, warmup=1)
+        serial["step_ms"] += time_ms(lambda: step(st, b), reps=3, warmup=1)
+        del nz, uu, sc
+    for s, (st, _, _) in zip(sessions, items):
+        t0 = time.perf_counter()
+        s.commit_adapt(st)            # the read-back a window's commit does
+        host["commit_ms"] += (time.perf_counter() - t0) * 1e3
+    host = {k: x / len(items) for k, x in host.items()}
+    print(f"(k1) one batched iteration of {len(items)} tenants [{smi}]: "
+          + " ".join(f"{k}={x:.3f}" for k, x in split.items())
+          + f"; the same {len(items)} tenants' serial iterations: "
+          + " ".join(f"{k}={x:.3f}" for k, x in serial.items())
+          + "; host work a window (mean, a coalesced burst): "
+          + " ".join(f"{k}={x:.3f}" for k, x in host.items()), flush=True)
+    return dict(batched=split, serial=serial, host_per_window=host)
+
+
+def phase_serve_fleet(dev, smi: str, report: dict) -> list:
+    """(k1) Eight same-bucket tenants of ~200,000 vertices: naive serving,
+    the scheduler serial and batched on the torch backend, and the
+    scheduler on the CUDA backend (serial, K1), on one request stream;
+    every ticket held to a twin session; returns the graphs."""
+    from repro_torch.core import (EngineOptions, SpinnerConfig, delta,
+                                  engine, open_session)
+    from repro_torch.serve import traffic
+
+    t0 = time.perf_counter()
+    graphs = [traffic.tenant_graph(SERVE_N + 17 * i, seed=i, k_nbrs=16)
+              for i in range(SERVE_TENANTS)]
+    t_build = time.perf_counter() - t0
+    buckets = {engine.graph_buckets(g) for g in graphs}
+    check(len(buckets) == 1, f"(k1) tenants in {len(buckets)} buckets")
+    cfg = SpinnerConfig(k=K)
+    gen = np.random.default_rng(7)
+    stream = [[[traffic.random_edge_updates(g.num_vertices, SERVE_PAIRS,
+                                            gen)
+                for _ in range(SERVE_BURST)] for g in graphs]
+              for _ in range(1 + SERVE_ROUNDS)]
+    torch_opts = EngineOptions(device=dev, score_backend="torch")
+    runs = {}
+    for mode, opts in (("naive", torch_opts), ("serial", torch_opts),
+                       ("batched", torch_opts),
+                       ("cuda", EngineOptions(device=dev,
+                                              score_backend="cuda"))):
+        runs[mode] = _serve_fleet(graphs, cfg, opts, stream, mode)
+        if mode != "batched":          # only the split reads them again
+            del runs[mode]["sessions"]
+
+    # the twins: a session that adapts once per coalesced window, and one
+    # that adapts once per request
+    for i, g in enumerate(graphs):
+        win, one = (open_session(g, cfg, torch_opts) for _ in range(2))
+        win.partition(record_history=False)
+        one.partition(record_history=False)
+        for rnd, per_tenant in enumerate(stream):
+            want = win.adapt(edge_updates=delta.coalesce_updates(
+                per_tenant[i]), record_history=False)
+            for mode in ("serial", "batched", "cuda"):
+                tks = runs[mode]["rounds"][rnd][i]
+                check(all(tk.result is tks[-1].result for tk in tks)
+                      and _same_result(tks[-1].result, want),
+                      f"(k1) {mode} tenant {i} round {rnd} differs from "
+                      "its twin's coalesced adapt")
+            for j, b in enumerate(per_tenant[i]):
+                check(_same_result(runs["naive"]["rounds"][rnd][i][j].result,
+                                   one.adapt(edge_updates=b,
+                                             record_history=False)),
+                      f"(k1) naive tenant {i} round {rnd} request {j} "
+                      "differs from its twin's adapt")
+    for mode, r in runs.items():
+        st = r["stats"]
+        check(st["uploads_since_mark"] == 0 and r["host_rebuilds"] == 0
+              and r["fallback_adapts"] == 0,
+              f"(k1) {mode}: {st['uploads_since_mark']} uploads since the "
+              f"mark, {r['host_rebuilds']} host rebuilds, "
+              f"{r['fallback_adapts']} fallbacks")
+        want_batched = [1] * len(stream) if mode == "batched" else \
+            [0] * len(stream)
+        check(r["batched"] == want_batched,
+              f"(k1) {mode}: batched runs per round {r['batched']}")
+    check(runs["cuda"]["k1_launches"] == runs["cuda"]["iterations"],
+          f"(k1) K1 launched {runs['cuda']['k1_launches']} times in "
+          f"{runs['cuda']['iterations']} iterations")
+    for mode in ("naive", "serial", "batched"):
+        check(runs[mode]["k1_launches"] == 0,
+              f"(k1) {mode} launched K1 on the torch backend")
+    v_pad, e_pad = buckets.pop()
+    out = {}
+    for mode, r in runs.items():
+        st = r["stats"]
+        rps = r["requests"] / r["wall_s"]
+        out[mode] = dict(throughput_rps=rps, wall_s=r["wall_s"],
+                         requests=r["requests"],
+                         coalescing_factor=st["coalescing_factor"],
+                         batch_occupancy=st["batch_occupancy"],
+                         batched_dispatches=st["batched_dispatches"],
+                         serial_dispatches=st["serial_dispatches"],
+                         iterations=r["iterations"],
+                         k1_launches=r["k1_launches"],
+                         uploads_since_mark=st["uploads_since_mark"])
+        print(f"(k1) {mode} [{smi}]: {r['requests']} requests in "
+              f"{r['wall_s']:.3f}s = {rps:.3f} requests/s; coalescing "
+              f"factor {st['coalescing_factor']:.3f}, batch occupancy "
+              f"{st['batch_occupancy']:.3f}, batched/serial dispatches "
+              f"{st['batched_dispatches']}/{st['serial_dispatches']}, "
+              f"{r['iterations']} iterations, K1 launches "
+              f"{r['k1_launches']}, uploads since the mark "
+              f"{st['uploads_since_mark']}", flush=True)
+    ratio = out["batched"]["throughput_rps"] / out["serial"]["throughput_rps"]
+    coal = out["serial"]["throughput_rps"] / out["naive"]["throughput_rps"]
+    print(f"(k1) {SERVE_TENANTS} tenants V={[g.num_vertices for g in graphs]}"
+          f" in bucket ({v_pad}, {e_pad}), built in {t_build:.3f}s; bursts "
+          f"of {SERVE_BURST} x {SERVE_PAIRS} pairs, 1 warm + {SERVE_ROUNDS} "
+          f"timed rounds; every ticket identical to its twin session "
+          f"(coalesced window / one adapt per request); the CUDA backend "
+          f"identical to the torch backend with K1 once an iteration; "
+          f"serial/naive throughput {coal:.3f}, batched/serial {ratio:.3f} "
+          f"[{smi}]", flush=True)
+    split = _serve_split(runs["batched"]["sessions"], cfg, dev, smi)
+    report["serve_fleet"] = dict(
+        out, batched_over_serial=ratio, serial_over_naive=coal,
+        bucket=[v_pad, e_pad], build_s=t_build, split=split, card=smi)
+    return graphs
+
+
+def phase_serve_poisson(dev, smi: str, report: dict) -> None:
+    """(k2) An open-loop Poisson replay over a power-law fleet of 16
+    CUDA-backend tenants with the default policies: zero errors, every
+    queue drained within twice the trace's duration."""
+    from repro_torch.core import EngineOptions, SpinnerConfig
+    from repro_torch.kernels.spinner_scores import fused_update
+    from repro_torch.serve import PartitionScheduler, traffic
+
+    sizes = traffic.powerlaw_sizes(16, v_min=16_384, v_max=1_048_576,
+                                   alpha=2.2, seed=0)
+    names = {f"p{i:02d}": v for i, v in enumerate(sizes)}
+    cfg = SpinnerConfig(k=K)
+    opts = EngineOptions(device=dev, score_backend="cuda")
+    sched = PartitionScheduler()
+    t0 = time.perf_counter()
+    for i, (name, v) in enumerate(sorted(names.items())):
+        sched.add_tenant(name, traffic.tenant_graph(v, seed=i), cfg, opts,
+                         partition=True)
+    t_admit = time.perf_counter() - t0
+    events = traffic.poisson_trace(
+        names, duration=POISSON_DURATION, rate=POISSON_RATE, burst_mean=3,
+        mix=(0.8, 0.15, 0.05), edges_per_update=1_000,
+        k_choices=(16, 32, 64), seed=0)
+    k1 = fused_update.launches
+    t0 = time.perf_counter()
+    done = traffic.replay(sched, events)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = sched.stats()
+    check(st["errors"] == 0 and st["queued"] == 0 and done == len(events),
+          f"(k2) {st['errors']} errors, {st['queued']} queued, {done} of "
+          f"{len(events)} completed")
+    check(wall <= 2 * POISSON_DURATION,
+          f"(k2) the trace took {wall:.3f}s, over twice its duration")
+    kinds = {k: sum(e.kind == k for e in events)
+             for k in ("edge_updates", "adapt", "resize")}
+    lat, lat_a = st["latency"], st["adapt_latency"]
+    print(f"(k2) Poisson replay [{smi}]: {len(names)} tenants "
+          f"V={sorted(sizes)} "
+          f"admitted in {t_admit:.3f}s; {len(events)} requests {kinds} over "
+          f"{POISSON_DURATION:.0f}s at rate {POISSON_RATE}/s a tenant, "
+          f"drained in {wall:.3f}s; latency p50 {lat['p50'] * 1e3:.3f} ms "
+          f"p99 {lat['p99'] * 1e3:.3f} ms, adapts p50 "
+          f"{lat_a['p50'] * 1e3:.3f} ms p99 {lat_a['p99'] * 1e3:.3f} ms; "
+          f"throughput {st['throughput_rps']:.3f} requests/s; coalescing "
+          f"factor {st['coalescing_factor']:.3f}; dispatches batched/serial "
+          f"{st['batched_dispatches']}/{st['serial_dispatches']}; policies "
+          f"{st['policies']}; errors {st['errors']}; K1 launches "
+          f"{fused_update.launches - k1}", flush=True)
+    report["serve_poisson"] = dict(
+        requests=len(events), kinds=kinds, wall_s=wall, rate=POISSON_RATE,
+        latency=lat, adapt_latency=lat_a,
+        throughput_rps=st["throughput_rps"],
+        coalescing_factor=st["coalescing_factor"],
+        batched_dispatches=st["batched_dispatches"],
+        serial_dispatches=st["serial_dispatches"],
+        policies=st["policies"], k1_launches=fused_update.launches - k1,
+        card=smi)
+
+
+def phase_serve_durability(graphs, dev, smi: str, report: dict) -> None:
+    """(k3) One (k1) tenant on the CUDA backend: export_state, save,
+    restore, import_state into a freshly opened session; its next adapt
+    identical to the uninterrupted session's."""
+    import tempfile
+
+    from repro_torch.ckpt import checkpoint
+    from repro_torch.core import (EngineOptions, SpinnerConfig, add_edges,
+                                  open_session)
+    from repro_torch.serve import traffic
+
+    g, cfg = graphs[0], SpinnerConfig(k=K)
+    opts = EngineOptions(device=dev, score_backend="cuda")
+    gen = np.random.default_rng(13)
+    b1, b2 = (traffic.random_edge_updates(g.num_vertices, SERVE_PAIRS, gen)
+              for _ in range(2))
+    live = open_session(g, cfg, opts)
+    live.partition(record_history=False)
+    live.adapt(edge_updates=b1, record_history=False)
+    snap = live.export_state()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        checkpoint.save(tmp, 1, snap)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored = checkpoint.restore(tmp, snap)
+        t_restore = time.perf_counter() - t0
+    want = live.adapt(edge_updates=b2, record_history=False)
+    fresh = open_session(add_edges(g, *b1), cfg, opts).import_state(restored)
+    got = fresh.adapt(edge_updates=b2, record_history=False)
+    check(_same_result(got, want), "(k3) the restored session's adapt "
+          "differs from the uninterrupted session's")
+    print(f"(k3) tenant 0 (V={g.num_vertices}) [{smi}]: export_state, save "
+          f"{t_save * 1e3:.3f} ms, restore {t_restore * 1e3:.3f} ms, "
+          f"import_state; the next adapt ({want.iterations} iterations) "
+          f"identical to the uninterrupted session's", flush=True)
+    report["serve_durability"] = dict(save_ms=t_save * 1e3,
+                                      restore_ms=t_restore * 1e3,
+                                      iterations=want.iterations)
+
+
 def print_rates(kernels: list) -> None:
     """(e) Each kernel's achieved rate, the bytes its bound counts over its
     measured time, beside the bound; adds ``achieved_bytes_per_s`` (and
@@ -1902,6 +2270,14 @@ def main() -> int:
     phase_placement(dev, smi, report)
     print(f"(j) phase (j) took {time.perf_counter() - t0:.3f}s [{smi}]",
           flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    serve_graphs = phase_serve_fleet(dev, smi, report)
+    torch.cuda.empty_cache()
+    phase_serve_poisson(dev, smi, report)
+    phase_serve_durability(serve_graphs, dev, smi, report)
+    print(f"(k) phase (k) took {time.perf_counter() - t0:.3f}s [{smi}]",
+          flush=True)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB", flush=True)
 
@@ -1956,6 +2332,12 @@ def main() -> int:
     for r in kernels:
         if r["name"] in ("spinner_scores_csr", "fused_update_csr"):
             r["bytes"] = report[r["name"]]["bytes"]
+        if r["name"] == "fused_update_csr":
+            # (k): the CUDA-backend fleet's serial K1 path, and the replay
+            r["launches_serve_fleet"] = report["serve_fleet"]["cuda"][
+                "k1_launches"]
+            r["launches_serve_poisson"] = report["serve_poisson"][
+                "k1_launches"]
         if r["name"] in ("pregel_reduce_csr", "pregel_combine_csr"):
             # (i): K3 over each rank's interior, K4 over its frontier
             part = "k3" if r["name"] == "pregel_reduce_csr" else "k4"

@@ -55,7 +55,8 @@ drained flag (with the step's scored count) once per iteration instead.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, NamedTuple, Optional, Tuple, Union
+from typing import (Callable, List, NamedTuple, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -801,6 +802,273 @@ def device_loads(labels: torch.Tensor, deg_w: torch.Tensor,
     sum exact in any order, so it equals ``spinner.compute_loads``."""
     loads = torch.zeros(k, dtype=torch.float32, device=deg_w.device)
     return loads.index_add_(0, labels.long(), deg_w)
+
+
+# ---------------------------------------------------------------------------
+# Batched same-bucket runs (the serving tier's executor)
+# ---------------------------------------------------------------------------
+# The reference stacks same-shaped (state, bind) pytrees and runs one vmap'd
+# while_loop.  Here a key is a host tuple and a session's delta segment has
+# its own length, so nothing stacks leaf for leaf: a batch stacks each
+# element's device tensors along a leading dimension, draws every element's
+# noise from its own key in one pass (``rng.uniform_many``) and concatenates
+# the torch backend's edge entries, base then delta, with the row offset
+# ``b * V_pad`` into one scatter over an ``(nb * V_pad, k)`` matrix.  The
+# Eq. 3 weights make every score sum exact, so the order does not matter.
+
+def _static_cfg(cfg) -> tuple:
+    """The paper parameters a run's iteration math depends on.  ``seed``
+    feeds only the host key and ``c`` only the capacity, which each
+    element's bind carries, so seed and slack sweeps share a batch."""
+    return (cfg.k, float(cfg.eps), cfg.halt_window, cfg.max_iters,
+            cfg.migration_weighting, float(cfg.tie_noise),
+            float(cfg.current_bonus))
+
+
+def backend_signature(backend) -> tuple:
+    """A score backend's batching identity (the reference backends'
+    ``signature()``): its class and name."""
+    return (type(backend).__name__, getattr(backend, "name", None))
+
+
+def batch_bucket(n: int) -> int:
+    """Power-of-two batch-size bucket (1, 2, 4, 8, ...): the reference
+    pads a batch to it so a wobbling fleet reuses one compiled program.
+    Eager PyTorch compiles nothing per batch size, so ``run_batched`` runs
+    only the real elements; the scheduler still reports occupancy as
+    ``n / batch_bucket(n)``, as the reference does."""
+    n = max(int(n), 1)
+    return 1 << (n - 1).bit_length()
+
+
+def batch_signature(cfg, opts: EngineOptions, bind: GraphBind) -> tuple:
+    """Batchability key of a ``(cfg, opts, bind)`` work item: the static
+    config, the backend signature, the fused flag and the padded
+    ``(V_pad, E_pad)`` -- what ``PartitionSession.batch_key`` keys on.
+    The delta segment's length is not part of it: the batch concatenates
+    each element's entries, so warm tenants with deltas of different
+    lengths share a batch."""
+    return (_static_cfg(cfg), backend_signature(opts.backend()),
+            opts.resolved_fused_update() == "on",
+            int(bind.deg_w.shape[0]), int(bind.score[0].shape[0]))
+
+
+class BatchBind(NamedTuple):
+    """The binds of a batch's elements, for one scatter over ``(nb *
+    V_pad, k)``: per-element tensors stacked, edge entries concatenated
+    with their rows offset by ``b * V_pad``."""
+
+    deg_w: torch.Tensor        # (nb, V_pad) f32
+    capacity: torch.Tensor     # (nb,) f32
+    valid: torch.Tensor        # (nb, V_pad) bool
+    src: torch.Tensor          # (entries,) int64 rows of the (nb*V_pad, k)
+    dst: torch.Tensor          # (entries,) int64 into the flat labels
+    w: torch.Tensor            # (entries,) f32
+
+
+def stack_states(states: Sequence[SpinnerState]) -> SpinnerState:
+    """Stack states along a new leading dimension; the ``key`` field
+    becomes the tuple of the elements' host keys."""
+    fields = {f: torch.stack([getattr(s, f) for s in states])
+              for f in SpinnerState._fields if f != "key"}
+    return SpinnerState(key=tuple(s.key for s in states), **fields)
+
+
+def index_state(states: SpinnerState, i: int) -> SpinnerState:
+    """Element ``i`` of a stacked batch of states."""
+    return SpinnerState(*(x[i] for x in states))
+
+
+def stack_binds(binds: Sequence[GraphBind]) -> BatchBind:
+    """The ``BatchBind`` of same-signature torch-backend binds: each
+    bind's ``score`` holds ``(src, dst, w)`` triples (the base segment,
+    then the merged delta if there is one)."""
+    v_pad = binds[0].deg_w.shape[0]
+    src, dst, w = [], [], []
+    for b, bind in enumerate(binds):
+        off = b * v_pad
+        for i in range(0, len(bind.score), 3):
+            s, d, we = bind.score[i:i + 3]
+            src.append(s.long() + off)
+            dst.append(d.long() + off)
+            w.append(we)
+    return BatchBind(
+        deg_w=torch.stack([b.deg_w for b in binds]),
+        capacity=torch.stack([b.capacity for b in binds]),
+        valid=torch.stack([b.valid for b in binds]),
+        src=torch.cat(src), dst=torch.cat(dst), w=torch.cat(w))
+
+
+def batched_draws(cfg, keys: torch.Tensor, v_pad: int) -> tuple:
+    """``(noise, u)`` of one batched iteration: ``keys`` is the ``(nb, 2,
+    2)`` int64 tensor of each element's (noise, migration) key words."""
+    dev = keys.device
+    noise = rng.uniform_many(keys[:, 0], (v_pad, cfg.k), 0.0, cfg.tie_noise,
+                             device=dev)
+    return noise, rng.uniform_many(keys[:, 1], (v_pad,), device=dev)
+
+
+def batched_scores(labels: torch.Tensor, bind: BatchBind,
+                   k: int) -> torch.Tensor:
+    """ComputeScores of every element as one scatter: ``(nb, V_pad, k)``."""
+    nb, v_pad = labels.shape
+    out = torch.zeros((nb * v_pad, k), dtype=torch.float32,
+                      device=labels.device)
+    out.index_put_((bind.src, labels.reshape(-1)[bind.dst].long()), bind.w,
+                   accumulate=True)
+    return out.view(nb, v_pad, k)
+
+
+def batched_update(cfg, scores, labels, loads, noise, u,
+                   bind: BatchBind) -> tuple:
+    """``make_update_parts``' propose and finish over a batch, op for op.
+
+    Elementwise work runs on the stacked tensors, which gives each
+    element the bits of its own run.  M(l) and the load delta are
+    ``index_add_`` over ``(nb * k)`` buckets of degree values (exact in
+    any order on the Eq. 3 weights, as in every backend); score(G) and
+    the migrant mass are float sums taken per element, each over its own
+    ``(V_pad,)`` row exactly as the unbatched ``finish`` takes them.
+    Returns ``(labels, loads, score_g, n_mig, mig_mass)``, each ``(nb,
+    ...)``."""
+    nb, k = labels.shape[0], cfg.k
+    dev = labels.device
+    C = bind.capacity[:, None]
+    # ---- propose (Eq. 7-8), as kernels.ref.propose_ref ------------------
+    norm = scores / torch.clamp(bind.deg_w, min=1.0)[:, :, None]
+    total = norm - (loads / C)[:, None, :]
+    bonus = torch.nn.functional.one_hot(labels.long(), k).to(
+        torch.float32) * float(np.float32(cfg.current_bonus))
+    best = torch.argmax(total + noise + bonus, dim=2).to(torch.int32)
+    want = (best != labels) & bind.valid
+    measure = (bind.deg_w if cfg.migration_weighting == "edges"
+               else torch.ones_like(bind.deg_w))
+    off = (torch.arange(nb, device=dev) * k)[:, None]
+    best_k, cur_k = (best.long() + off).reshape(-1), \
+        (labels.long() + off).reshape(-1)
+    M = torch.zeros(nb * k, dtype=torch.float32, device=dev).index_add_(
+        0, best_k, torch.where(want, measure, 0.0).reshape(-1)).view(nb, k)
+    tot_best = total.gather(2, best.long()[..., None])[..., 0]
+    tot_cur = total.gather(2, labels.long()[..., None])[..., 0]
+    # ---- finish (Eq. 11-12), as make_update_parts' ----------------------
+    R = torch.clamp(C - loads, min=0.0)
+    p = torch.clamp(R / torch.clamp(M, min=1e-9), 0.0, 1.0)
+    migrate = want & (u < p.gather(1, best.long()))
+    new_labels = torch.where(migrate, best, labels)
+    mig_deg = torch.where(migrate, bind.deg_w, 0.0)
+    delta = torch.zeros(nb * k, dtype=torch.float32, device=dev)
+    delta.index_add_(0, best_k, mig_deg.reshape(-1))
+    delta.index_add_(0, cur_k, -mig_deg.reshape(-1))
+    sel = torch.where(bind.valid, torch.where(migrate, tot_best, tot_cur),
+                      0.0)
+    score_g = torch.stack([row.sum() for row in sel])
+    mig_mass = torch.stack([row.sum() for row in mig_deg])
+    n_mig = migrate.sum(dim=1).to(torch.int32)
+    return (new_labels, loads + delta.view(nb, k), score_g, n_mig,
+            mig_mass)
+
+
+def _batched_step(cfg, state: SpinnerState, keys: torch.Tensor,
+                  bind: BatchBind) -> SpinnerState:
+    """One iteration of every element of a stacked state (all active)."""
+    v_pad = state.labels.shape[1]
+    noise, u = batched_draws(cfg, keys, v_pad)
+    scores = batched_scores(state.labels, bind, cfg.k)
+    labels, loads, score_g, n_mig, mig_mass = batched_update(
+        cfg, scores, state.labels, state.loads, noise, u, bind)
+    best, stall, halted = _halting_update(
+        state.best_score, state.stall, score_g, float(np.float32(cfg.eps)),
+        cfg.halt_window)
+    return state._replace(
+        labels=labels, loads=loads, best_score=best, stall=stall,
+        iteration=state.iteration + 1, halted=halted,
+        total_messages=state.total_messages + mig_mass, score=score_g,
+        migrations=n_mig, message_mass=mig_mass)
+
+
+def chunk_keys(keys: list, active: Sequence[int], n: int, device
+               ) -> torch.Tensor:
+    """Advance the active elements' host keys by ``n`` iterations (in
+    place in ``keys``) and return the ``(n, len(active), 2, 2)`` int64
+    tensor of each iteration's (noise, migration) keys, uploaded once."""
+    words = np.empty((n, len(active), 2, 2), np.int64)
+    for j, b in enumerate(active):
+        key = keys[b]
+        for s in range(n):
+            key, k_it = rng.split(key)
+            words[s, j] = rng.split(k_it)
+        keys[b] = key
+    return torch.from_numpy(words).to(device)
+
+
+def run_batched(items: Sequence[Tuple[SpinnerState, GraphBind]], cfg,
+                opts: Optional[EngineOptions] = None,
+                on_program: Optional[Callable] = None
+                ) -> List[SpinnerState]:
+    """Run independent same-signature ``(state, bind)`` work items of the
+    torch scatter backend as one batch; returns each item's final state,
+    bit-identical to its own ``run_bound`` (its host key included).
+
+    States arrive and leave PADDED (``PartitionSession.adapt_parts`` /
+    ``commit_adapt`` pad and slice).  Only the real elements run: there
+    are no pad lanes (see ``batch_bucket``).  The host reads every
+    element's halting state once per chunk and sizes the chunk as the
+    minimum over the active elements of ``min(chunk, max_iters - it,
+    halt_window - stall)``, so no element can halt inside a chunk; a
+    frozen element is left out of the next chunk, its state and key
+    unchanged.  ``on_program``, if given, is called once with the batch's
+    signature (the reference passes its compiled program; nothing
+    compiles here).  The CUDA backend's tenants run serially through
+    their own kernel path instead (``PartitionSession.batchable``).
+    """
+    if not items:
+        return []
+    opts = opts if opts is not None else EngineOptions()
+    if getattr(opts.backend(), "name", None) != "torch":
+        raise ValueError("run_batched batches the 'torch' scatter backend; "
+                         "run other backends' items through run_bound")
+    sigs = {batch_signature(cfg, opts, b) for _, b in items}
+    if len(sigs) != 1:
+        raise ValueError(f"items do not share one batch_signature: {sigs}")
+    for s, _ in items:
+        _state_device(s, opts)
+    if on_program is not None:
+        on_program(next(iter(sigs)))
+    binds = [b for _, b in items]
+    keys = [s.key for s, _ in items]
+    state = stack_states([s for s, _ in items])
+    dev = state.labels.device
+    chunk = opts.chunk_size or DEFAULT_CHUNK
+    bound_for, bind = None, None
+    while True:
+        flags = torch.stack([state.halted.to(torch.int64),
+                             state.stall.to(torch.int64),
+                             state.iteration.to(torch.int64)], 1).tolist()
+        active = [b for b, (h, _, it) in enumerate(flags)
+                  if not h and it < cfg.max_iters]
+        if not active:
+            break
+        n = max(1, min(min(chunk, cfg.max_iters - flags[b][2],
+                           cfg.halt_window - flags[b][1]) for b in active))
+        if tuple(active) != bound_for:     # the active set shrank
+            bound_for = tuple(active)
+            bind = stack_binds([binds[b] for b in active])
+        step_keys = chunk_keys(keys, active, n, dev)
+        every = len(active) == len(items)
+        idx = None if every else torch.tensor(active, device=dev)
+        sub = state if every else SpinnerState(*(
+            x if f == "key" else x.index_select(0, idx)
+            for f, x in zip(SpinnerState._fields, state)))
+        for s in range(n):
+            sub = _batched_step(cfg, sub, step_keys[s], bind)
+        if every:
+            state = sub
+        else:
+            state = SpinnerState(*(
+                x if f == "key" else x.index_copy(0, idx, y)
+                for f, x, y in zip(SpinnerState._fields, state, sub)))
+    state = state._replace(key=tuple(keys))
+    return [index_state(state, i) for i in range(len(items))]
 
 
 # ---------------------------------------------------------------------------

@@ -601,6 +601,93 @@ class PartitionSession:
         return _engine.run_sharded_bound(cfg, opts, plan, step, bind, comm,
                                          state), None
 
+    # -- scheduler-driven batched execution (repro_torch.serve) ------------
+
+    def batchable(self) -> bool:
+        """True when this session's adapts can ride the engine's batched
+        same-bucket runner (``engine.run_batched``): single-device fused
+        runs on the torch scatter backend, the counterpart of the
+        reference's XLA backend.  Sharded, chunked and host sessions, and
+        the CUDA backend (whose K1 runs per tenant), run serially through
+        their own entry points instead."""
+        self._check_open()
+        opts = self.options
+        if self._mesh is not None or opts.engine not in ("auto", "fused"):
+            return False
+        return getattr(opts.backend(), "name", None) == "torch"
+
+    def batch_key(self) -> tuple:
+        """Same-bucket compatibility key: sessions whose keys match give
+        ``adapt_parts`` work items that share one batch (their
+        ``engine.batch_signature``).  Reads the BASE graph (no
+        pending-delta materialization)."""
+        self._check_open()
+        opts = self.options
+        padded, _ = _engine.padded_view(self._graph, opts)
+        return (_engine._static_cfg(self.cfg),
+                _engine.backend_signature(opts.backend()),
+                opts.resolved_fused_update() == "on",
+                padded.num_vertices, padded.num_directed_entries)
+
+    def adapt_parts(self, edge_updates: Optional[tuple] = None,
+                    prev: Optional[np.ndarray] = None
+                    ) -> Optional[tuple]:
+        """Build -- without running -- this session's next adapt as a
+        ``(state, bind, cfg, opts)`` work item for ``engine.run_batched``;
+        None when the session is not ``batchable()``.
+
+        Mirrors ``adapt(record_history=False)`` exactly: an eligible
+        ``edge_updates`` batch takes the O(|delta|) fast path (one merge
+        for the whole, possibly coalesced, batch); otherwise the rebuild
+        (counted in ``fallback_adapts`` and ``host_rebuilds``) gives the
+        same work item from the rebuilt graph's bind.  Without a batch a
+        staged snapshot is consumed.  Feed the runner's output state to
+        ``commit_adapt``; until then the previous labels are unchanged.
+        """
+        self._check_open()
+        if not self.batchable():
+            return None
+        prev_arr = self._require_prev(prev)
+        if edge_updates is not None:
+            e_src, e_dst = _delta.check_edge_updates(
+                edge_updates[0], edge_updates[1], self._graph.num_vertices,
+                None)
+            self._delta_seq += 1
+            out = self._fast_prepare(e_src, e_dst, prev_arr, False, None)
+            if out is not None:
+                self._staged = None
+                fs, state = out
+                return state, self._fast_bind(fs, False), self.cfg, \
+                    self.options
+            self._fallback_adapts += 1
+            new_graph = add_edges(self.graph, e_src, e_dst)
+            self._host_rebuilds += 1
+            self._staged = None
+            self.graph = new_graph
+        elif self._staged is not None:
+            staged, self._staged = self._staged, None
+            self.graph = staged
+        graph, cfg, opts = self.graph, self.cfg, self.options
+        init = extend_labels(prev_arr, graph.num_vertices)
+        labels, loads, key = prepare_init(graph, cfg, init,
+                                          device=self._device)
+        self._note_upload(graph)
+        bind, padded = _engine.make_bind(graph, cfg, opts, self._device)
+        state = _engine.init_state(
+            _engine.pad_labels(labels, padded.num_vertices), loads, key)
+        return state, bind, cfg, opts
+
+    def commit_adapt(self, state) -> PartitionResult:
+        """Record a batched runner's output state as this session's new
+        stable result -- the bookkeeping ``adapt`` does after its own run
+        (labels sliced to the real vertices, previous labels advanced,
+        dirty set cleared).  Reads the state back to the host."""
+        self._check_open()
+        res = self._finish_state(state, self._graph.num_vertices, "fused",
+                                 None)
+        self._dirty = None
+        return res
+
     def _active_mask(self, v_pad: int) -> torch.Tensor:
         active = np.zeros(v_pad, bool)
         if self._dirty is not None:
@@ -698,6 +785,72 @@ class PartitionSession:
         (``update()`` / ``adapt(edge_updates=)``), whether merged on
         device, pending, or already materialized."""
         return self._delta_seq
+
+    @property
+    def uploads(self) -> int:
+        """O(E) host-to-device uploads of a padded CSR this session's runs
+        caused (the port's counterpart of the reference's compile count)."""
+        return self._uploads
+
+    def export_state(self) -> dict:
+        """The session's partition state as a flat dict of host arrays --
+        the checkpointable surface (``repro_torch.ckpt``).
+
+        O(V + k): the previous stable ``labels``, the ``loads`` they
+        imply, the key every run derives from (``rng.PRNGKey(cfg.seed)``
+        as ``uint32[2]``, the reference's bits; recorded for audit: runs
+        are deterministic functions of graph, config and previous labels,
+        which is what makes a restored session continue bit-identically),
+        and the run and delta-watermark counters.  The graph is not
+        included; it is rebuilt from the durable inputs on restore.
+        """
+        self._check_open()
+        if self._prev is None:
+            raise ValueError("no stable labels to snapshot; run "
+                             "partition() first or import_state()")
+        if self._last is not None:
+            loads = np.asarray(self._last.loads, np.float32)
+        else:                  # re-derive exactly as prepare_init does
+            loads = np.zeros(self.cfg.k, np.float32)
+            np.add.at(loads, self._prev,
+                      np.asarray(self._graph.deg_w, np.float32))
+        return {
+            "labels": np.asarray(self._prev, np.int32),
+            "loads": loads,
+            "rng_key": np.asarray(rng.PRNGKey(self.cfg.seed), np.uint32),
+            "runs": np.int64(self._runs),
+            "delta_watermark": np.int64(self._delta_seq),
+            "k": np.int64(self.cfg.k),
+            "num_vertices": np.int64(self._graph.num_vertices),
+        }
+
+    def import_state(self, state: dict) -> "PartitionSession":
+        """Restore an ``export_state`` snapshot (this package's or the
+        reference's) into this freshly opened session: the next
+        ``adapt()`` / ``resize()`` continues from the restored labels as
+        if this session had computed them.  The session's graph must
+        already be at the snapshot's logical state; labels for a
+        since-grown vertex set are extended by the usual -1 ->
+        least-loaded rule on the next run.  Chainable."""
+        self._check_open()
+        labels = np.asarray(state["labels"], np.int32)
+        if labels.shape[0] > self._graph.num_vertices:
+            raise ValueError(
+                f"snapshot has {labels.shape[0]} labels but the session "
+                f"graph has {self._graph.num_vertices} vertices; rebuild "
+                f"the graph at (or past) the snapshot watermark first")
+        if int(state["k"]) != self.cfg.k:
+            raise ValueError(
+                f"snapshot was taken at k={int(state['k'])} but the "
+                f"session is configured with k={self.cfg.k}; open with "
+                f"the saved k and resize() afterwards")
+        self._prev = labels
+        self._last = None
+        self._runs = int(state["runs"])
+        self._delta_seq = int(state["delta_watermark"])
+        self._staged = None
+        self._dirty = None
+        return self
 
     def stats(self) -> dict:
         """Session state: shape buckets, run and upload counters, padded

@@ -18,6 +18,11 @@ counter is the flat index, large outputs are generated in row blocks
 (bounding the int64 temporaries) without changing a bit, and a slice of
 an output (``uniform(..., offset=)``, a shard's rows of a replicated
 draw) is drawn from its own counters alone.
+
+``uniform_many`` draws the same output for many keys in one pass (the
+batched runner's per-tenant draws): the key words broadcast as ``(nb,
+1)`` columns against the ``(1, n)`` counters, so row ``b`` is bit for bit
+``uniform(keys[b], ...)``.
 """
 from __future__ import annotations
 
@@ -45,11 +50,13 @@ def _rounds(x0: Word, x1: Word, rot) -> Tuple[Word, Word]:
     return x0, x1
 
 
-def threefry2x32(k0: int, k1: int, x0: Word, x1: Word) -> Tuple[Word, Word]:
+def threefry2x32(k0: Word, k1: Word, x0: Word, x1: Word
+                 ) -> Tuple[Word, Word]:
     """The threefry2x32 block function (20 rounds) on uint32 words.
 
-    ``x0``/``x1`` are Python ints or int64 tensors of uint32 values; the
-    key words are Python ints.  Returns the two output words.
+    Every word is a Python int or an int64 tensor of uint32 values; the
+    tensors broadcast (key columns against counter rows draw for many
+    keys at once).  Returns the two output words.
     """
     k2 = k0 ^ k1 ^ 0x1BD11BDA
     ks = (k0, k1, k2)
@@ -89,6 +96,42 @@ def _bit_blocks(key: Key, n: int, device, offset: int = 0):
                            device=device)
         b0, b1 = threefry2x32(key[0], key[1], idx >> 32, idx & _M32)
         yield start, stop, b0 ^ b1
+
+
+def _key_words(keys, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``(nb, 1)`` int64 columns of a list of keys' words, or of an
+    ``(nb, 2)`` int64 tensor of them (used as it is: no host copy)."""
+    if not isinstance(keys, torch.Tensor):
+        keys = torch.tensor([[int(a), int(b)] for a, b in keys],
+                            dtype=torch.int64, device=device)
+    return keys[:, :1], keys[:, 1:]
+
+
+def uniform_many(keys, shape, minval: float = 0.0, maxval: float = 1.0, *,
+                 device) -> torch.Tensor:
+    """``uniform(key, shape, minval, maxval)`` for every key of ``keys`` in
+    one pass: an ``(nb, *shape)`` tensor whose row ``b`` is bit for bit
+    ``uniform(keys[b], shape, minval, maxval)``.
+
+    ``keys`` is a list of keys or an ``(nb, 2)`` int64 tensor of their
+    uint32 words on ``device``.  Blocks of the flat counters bound the
+    int64 temporaries to ``_BLOCK`` elements across the batch.
+    """
+    shape = tuple(int(s) for s in shape)
+    k0, k1 = _key_words(keys, device)
+    nb, n = k0.shape[0], math.prod(shape)
+    lo = float(np.float32(minval))
+    span = float(np.float32(maxval) - np.float32(minval))
+    out = torch.empty((nb, n), dtype=torch.float32, device=device)
+    block = max(1, _BLOCK // max(nb, 1))
+    for start in range(0, n, block):
+        stop = min(n, start + block)
+        idx = torch.arange(start, stop, dtype=torch.int64,
+                           device=device)[None, :]
+        b0, b1 = threefry2x32(k0, k1, idx >> 32, idx & _M32)
+        out[:, start:stop] = torch.clamp(_bits_to_unit(b0 ^ b1) * span + lo,
+                                         min=lo)
+    return out.reshape((nb,) + shape)
 
 
 def random_bits(key: Key, shape, device) -> torch.Tensor:

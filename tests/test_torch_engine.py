@@ -267,6 +267,7 @@ def test_imports_neither_jax_nor_reference():
         "import repro_torch.core.comm, repro_torch.core.distributed\n"
         "import repro_torch.core.pregel_dist, repro_torch.core.placement\n"
         "import repro_torch.convert, repro_torch.rng, chip_smoke\n"
+        "import repro_torch.serve, repro_torch.ckpt, repro_torch.runtime\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n")

@@ -884,3 +884,106 @@ def test_halved_weights_partition_matches_cpu(cuda):
         if backend == "cuda":
             assert fused_update.launches + spinner_scores.launches \
                 == got.iterations
+
+
+# ---------------------------------------------------------------------------
+# the serving tier and durability on the card (chip_smoke.py phase (k), small)
+# ---------------------------------------------------------------------------
+
+def _serve_rounds(opts, batch_min, graphs, batches, cfg):
+    """Every round sends each tenant its bursts; returns the tickets'
+    results per round, the batched runs a round, the scheduler's stats
+    (marked after the first round) and the K1 launches of the rounds."""
+    from repro_torch.serve import PartitionScheduler
+    sched = PartitionScheduler(batch_min=batch_min, policies=())
+    for i, g in enumerate(graphs):
+        sched.add_tenant(f"t{i}", g, cfg, opts, partition=True)
+    launches = fused_update.launches
+    results, batched = [], []
+    for rnd, per_tenant in enumerate(batches):
+        if rnd == 1:
+            sched.mark()
+        before = sched.stats()["batched_dispatches"]
+        tks = [[sched.submit(f"t{i}", "edge_updates", edge_updates=b)
+                for b in bursts] for i, bursts in enumerate(per_tenant)]
+        sched.drain()
+        batched.append(sched.stats()["batched_dispatches"] - before)
+        results.append([t[-1].result for t in tks])
+    sessions = [t.session for t in sched.tenants.values()]
+    return (results, batched, sched.stats(), sessions,
+            fused_update.launches - launches)
+
+
+def test_serving_fleet_on_card_matches_serial(cuda):
+    """Three tenants of ~20,000 vertices in one bucket, two rounds of three
+    400-pair bursts each: the torch backend batched (one batched run a
+    round) and serial, and the CUDA backend through the scheduler
+    (serial, K1 once an iteration), all equal to a twin session that
+    adapts once per coalesced window; no upload and no host rebuild
+    after the warm round."""
+    from repro_torch.core import delta as delta_mod
+    from repro_torch.serve import traffic
+    cfg = SpinnerConfig(k=32)
+    graphs = [traffic.tenant_graph(20_000 + 17 * i, seed=i, k_nbrs=16)
+              for i in range(3)]
+    assert len({engine.graph_buckets(g) for g in graphs}) == 1
+    rng_np = np.random.default_rng(5)
+    batches = [[[traffic.random_edge_updates(g.num_vertices, 400, rng_np)
+                 for _ in range(3)] for g in graphs] for _ in range(2)]
+    torch_opts = EngineOptions(device=cuda, score_backend="torch")
+    cuda_opts = EngineOptions(device=cuda, score_backend="cuda")
+    batched, nb, st, sess, k1 = _serve_rounds(torch_opts, 2, graphs,
+                                              batches, cfg)
+    assert nb == [1, 1] and st["errors"] == 0 and k1 == 0
+    assert st["uploads_since_mark"] == 0
+    assert all(s.stats()["delta"]["host_rebuilds"] == 0 for s in sess)
+    serial, nb, st, _, _ = _serve_rounds(torch_opts, 10 ** 9, graphs,
+                                         batches, cfg)
+    assert nb == [0, 0] and st["errors"] == 0
+    kernel, _, st, _, k1 = _serve_rounds(cuda_opts, 2, graphs, batches, cfg)
+    assert st["errors"] == 0 and st["batched_dispatches"] == 0
+    assert k1 == sum(r.iterations for rnd in kernel for r in rnd)
+    for i, g in enumerate(graphs):
+        twin = open_session(g, cfg, torch_opts)
+        twin.partition(record_history=False)
+        for rnd in range(2):
+            want = twin.adapt(edge_updates=delta_mod.coalesce_updates(
+                batches[rnd][i]), record_history=False)
+            for got in (batched[rnd][i], serial[rnd][i], kernel[rnd][i]):
+                np.testing.assert_array_equal(got.labels, want.labels)
+                np.testing.assert_array_equal(got.loads, want.loads)
+                assert (got.iterations, got.halted) == (want.iterations,
+                                                        want.halted)
+
+
+def test_uniform_many_on_card(cuda):
+    keys = [rng.split(rng.PRNGKey(s))[0] for s in range(5)]
+    many = rng.uniform_many(keys, (1000, 32), 0.0, 1e-6, device=cuda)
+    for b, key in enumerate(keys):
+        assert _bits_equal(many[b], rng.uniform(key, (1000, 32), 0.0, 1e-6,
+                                                device=cuda))
+
+
+def test_checkpointed_session_continues_on_card(cuda, tmp_path):
+    """export_state, checkpoint.save, restore, import_state into a fresh
+    session on the card: the next adapt equals the uninterrupted one."""
+    from repro_torch.ckpt import checkpoint
+    from repro_torch.serve import traffic
+    cfg = SpinnerConfig(k=32)
+    g = traffic.tenant_graph(20_000, seed=0, k_nbrs=16)
+    gen = np.random.default_rng(3)
+    b1, b2 = (traffic.random_edge_updates(g.num_vertices, 400, gen)
+              for _ in range(2))
+    opts = EngineOptions(device=cuda, score_backend="cuda")
+    live = open_session(g, cfg, opts)
+    live.partition(record_history=False)
+    live.adapt(edge_updates=b1, record_history=False)
+    g_b1 = live.graph
+    checkpoint.save(str(tmp_path), 1, live.export_state())
+    want = live.adapt(edge_updates=b2, record_history=False)
+    snap = checkpoint.restore(str(tmp_path), live.export_state())
+    fresh = open_session(g_b1, cfg, opts).import_state(snap)
+    got = fresh.adapt(edge_updates=b2, record_history=False)
+    np.testing.assert_array_equal(got.labels, want.labels)
+    np.testing.assert_array_equal(got.loads, want.loads)
+    assert (got.iterations, got.halted) == (want.iterations, want.halted)

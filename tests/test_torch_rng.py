@@ -110,3 +110,25 @@ def test_randint_wide_span():
     got = rng.randint(rng.PRNGKey(9), (500,), -5, 3_000_000_000 // 2,
                       device="cpu")
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("block", [7, 1 << 24])
+def test_uniform_many_is_each_keys_draw(monkeypatch, block):
+    """Drawing for a list of keys in one pass gives every key's own bits
+    (and ``jax.random.uniform``'s), whatever the block size; the keys may
+    come as an ``(nb, 2)`` int64 tensor of their words."""
+    monkeypatch.setattr(rng, "_BLOCK", block)
+    keys = [rng.split(rng.PRNGKey(s))[1] for s in SEEDS]
+    shape, tie = (13, 5), 1e-6
+    many = rng.uniform_many(keys, shape, 0.0, tie, device="cpu")
+    words = rng.uniform_many(torch.tensor(keys, dtype=torch.int64), shape,
+                             0.0, tie, device="cpu")
+    assert many.shape == (len(keys),) + shape
+    for b, key in enumerate(keys):
+        one = rng.uniform(key, shape, 0.0, tie, device="cpu")
+        want = np.asarray(jax.random.uniform(
+            jnp.asarray(key, jnp.uint32), shape, jnp.float32, 0.0, tie))
+        for got in (many[b], words[b]):
+            assert torch.equal(got.view(torch.int32), one.view(torch.int32))
+            np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                          want.view(np.int32))
