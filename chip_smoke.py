@@ -117,6 +117,23 @@ about 128 M directed CSR entries, k = 32):
       throughput, coalescing); (k3) export_state, checkpoint save and
       restore, import_state into a fresh session: its next adapt
       identical to the uninterrupted session's;
+  (l) the cluster runtime (``repro_torch.cluster``): (l1) the full graph's
+      edge shards for two hosts, two worker processes on the card under
+      ``ProcessClusterSupervisor`` (the store hosted by the supervisor),
+      worker 1 killed at superstep 6 of 12, the one-process generation
+      resuming from the snapshot of superstep 4: its labels identical to
+      an uninterrupted one-process job's, phi equal, every worker's K2
+      launched once a superstep, one superstep's split per worker (draws /
+      K2 / propose-finish / store exchange / heartbeat), and K2 on one
+      worker's rows bitwise equal to its plain version, timed with its
+      bound; (l2) ``PartitionSupervisor`` on the CUDA backend (K1):
+      ``partition`` + 3 ``adapt`` on the full graph clean, with
+      ``kill_worker_at(2)`` and with the newest snapshot torn first --
+      identical labels, the recover seconds -- and on the medium graph a
+      kill after two edge batches replaying them; (l3) (k1)'s tenants on
+      the CUDA backend under ``PartitionScheduler(deployment=
+      ClusterDeployment(...))``, one poisoned dispatch recovered and
+      retried, every ticket identical to its twin session's;
   (e) each kernel's achieved bytes/s (the bytes its bound counts over its
       measured time) beside its bound, then one JSON line describing each
       kernel.
@@ -2185,6 +2202,329 @@ def phase_serve_durability(graphs, dev, smi: str, report: dict) -> None:
                                       iterations=want.iterations)
 
 
+CLUSTER_ITERS, CLUSTER_SNAP, CLUSTER_FAULT = 12, 4, 6   # (l1) depth cut
+
+
+def _cluster_run(tmp: str, name: str, world: int, job: dict) -> dict:
+    """One ``ProcessClusterSupervisor`` job under ``tmp/name``: its output,
+    wall seconds, labels and every worker's stats file.  A worker that
+    fails to build or launch K2 exits non-zero; once the restart budget is
+    spent the supervisor raises ``WorkerLost``, which ends the smoke (the
+    workers' log tails go to stderr first)."""
+    import os
+
+    from repro_torch.cluster import (ProcessClusterConfig,
+                                     ProcessClusterSupervisor, WorkerLost)
+
+    wd = os.path.join(tmp, name)
+    t0 = time.perf_counter()
+    try:
+        out = ProcessClusterSupervisor(
+            ProcessClusterConfig(workdir=wd, num_processes=world), job).run()
+    except WorkerLost:
+        for log in sorted(os.listdir(wd)):
+            if log.endswith(".log"):
+                with open(os.path.join(wd, log)) as f:
+                    print(f"--- {name}/{log}:\n{f.read()[-3000:]}",
+                          file=sys.stderr)
+        raise
+    wall = time.perf_counter() - t0
+    stats = {}
+    for f in sorted(os.listdir(wd)):
+        if f.startswith("stats_g") and f.endswith(".json"):
+            with open(os.path.join(wd, f)) as fh:
+                stats[f[len("stats_"):-len(".json")]] = json.load(fh)
+    return dict(out=out, wall_s=wall, stats=stats,
+                labels=np.load(os.path.join(wd, "labels.npy")))
+
+
+def phase_cluster_workers(graph, dev, smi: str, report: dict) -> None:
+    """(l1) The process cluster on one card: the full graph's edge shards
+    for two hosts; two workers on cuda:0 under ``ProcessClusterSupervisor``
+    lose worker 1 at superstep 6, the one-process generation resumes from
+    the snapshot of superstep 4; an uninterrupted one-process job; the
+    recovered labels identical to it, K2 launched once a superstep by
+    every worker, and K2 on one worker's rows against its plain version."""
+    import os
+    import tempfile
+
+    from repro_torch.cluster import write_edge_shards
+    from repro_torch.cluster.worker import owned_csr
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.spinner_scores import spinner_scores
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        shards = os.path.join(tmp, "shards")
+        man = write_edge_shards(graph, shards, num_hosts=2)
+        t_write = time.perf_counter() - t0
+        job = {"shard_dir": shards, "k": K, "seed": 0,
+               "max_iters": CLUSTER_ITERS, "snapshot_every": CLUSTER_SNAP,
+               "device": str(dev), "rpc_timeout": 300}
+        faulty = _cluster_run(tmp, "faulty", 2, {**job, "fault": {
+            "gen": 0, "pid": 1, "iteration": CLUSTER_FAULT}})
+        whole = _cluster_run(tmp, "uninterrupted", 1, job)
+        out, gens = faulty["out"], faulty["out"]["generations"]
+        check(out["restarts"] == 1 and [g["dead"] for g in gens] == [[1], []]
+              and out["result"]["world"] == 1,
+              f"(l1) restarts {out['restarts']}, generations {gens}")
+        check(np.array_equal(faulty["labels"], whole["labels"]),
+              "(l1) the recovered labels differ from the uninterrupted "
+              "run's")
+        check(out["result"]["phi"] == whole["out"]["result"]["phi"],
+              f"(l1) phi {out['result']['phi']} != "
+              f"{whole['out']['result']['phi']}")
+        workers = {**{f"faulty {k}": v for k, v in faulty["stats"].items()},
+                   **{f"uninterrupted {k}": v
+                      for k, v in whole["stats"].items()}}
+        want = {"faulty g0_p0": CLUSTER_FAULT, "faulty g0_p1": CLUSTER_FAULT,
+                "faulty g1_p0": CLUSTER_ITERS - CLUSTER_SNAP,
+                "uninterrupted g0_p0": CLUSTER_ITERS}
+        check(sorted(workers) == sorted(want), f"(l1) workers {workers}")
+        for w, st in workers.items():
+            check(st["supersteps"] == want[w]
+                  and st["k2_launches"] == st["supersteps"]
+                  and st["device"].startswith(dev.type),
+                  f"(l1) {w}: {st['supersteps']} supersteps, K2 "
+                  f"{st['k2_launches']} launches on {st['device']}")
+        print(f"(l1) [{smi}] shards of V={man['num_vertices']} for 2 hosts "
+              f"written in {t_write:.3f}s; 2 workers on {dev} lost worker "
+              f"1 at superstep {CLUSTER_FAULT}: restarts {out['restarts']}, "
+              f"generations "
+              f"{[(g['gen'], g['world'], g['dead'], round(g['seconds'], 3)) for g in gens]}"
+              f", {faulty['wall_s']:.3f}s; uninterrupted 1-process job "
+              f"{whole['wall_s']:.3f}s; recovered labels.npy identical to "
+              f"the uninterrupted run's, phi {out['result']['phi']} equal; "
+              f"K2 launches = supersteps for each worker "
+              f"{ {w: st['k2_launches'] for w, st in workers.items()} }",
+              flush=True)
+        for w, st in workers.items():
+            print(f"(l1) {w} ({st['rows']} rows, {st['entries']} entries) "
+                  f"one superstep [{smi}]: " + ", ".join(
+                      f"{p} {ms:.3f} ms" for p, ms in st["split_ms"].items()),
+                  flush=True)
+
+        # K2 over worker 0's rows of the 2-host layout, the uninterrupted
+        # run's labels as the lookup, against its plain version
+        rows, row_ptr, src, dst, w = owned_csr(
+            shards, [0], man["v_per_host"], man["num_vertices"])
+    rp_d, dst_d, w_d = (torch.from_numpy(a).to(dev)
+                        for a in (row_ptr, dst, w))
+    lookup = torch.from_numpy(whole["labels"]).to(dev)
+    own = lookup[torch.from_numpy(rows).to(dev)]
+    src_d = torch.from_numpy(src - int(rows[0])).to(dev)
+    n, e = rows.size, src.size
+
+    def k2():
+        return spinner_scores(own, rp_d, dst_d, w_d, K, lookup=lookup)
+
+    def k2_plain():
+        return ref.spinner_scores_ref(lookup, src_d, dst_d, w_d, n, K)
+
+    got, exp = k2(), k2_plain()
+    torch.cuda.synchronize()
+    check(bits_equal(got, exp), "(l1) K2 on worker 0's rows != its plain "
+          "version")
+    err = max_abs_err([(got, exp)])
+    del got, exp
+    ms, plain_ms = time_ms(k2, reps=20), time_ms(k2_plain, reps=5)
+    nbytes = (n + 1) * 8 + e * 8 + n * 4 + lookup.numel() * 4 + n * K * 4
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"(l1) K2 on worker 0's {n} rows ({e} entries, the full label "
+          f"vector its lookup) [{smi}]: bitwise equal to its plain version "
+          f"(max_abs_err {err}); {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {bound:.3f} ms for {nbytes} B", flush=True)
+    report["cluster_workers"] = dict(
+        write_s=t_write, faulty_wall_s=faulty["wall_s"],
+        uninterrupted_wall_s=whole["wall_s"], generations=gens,
+        phi=out["result"]["phi"], workers=workers,
+        k2_launches=sum(st["k2_launches"] for st in workers.values()),
+        k2_rows=dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bytes=nbytes,
+                     max_abs_err=err, rows=int(n), entries=int(e)),
+        card=smi)
+
+
+def phase_cluster_supervisor(graph, medium, dev, smi: str,
+                             report: dict) -> None:
+    """(l2) ``PartitionSupervisor`` on the CUDA backend, full graph:
+    ``partition`` + 3 ``adapt`` clean, with ``kill_worker_at(2)`` and with
+    the newest snapshot torn first -- identical labels, the torn one
+    skipped; on the medium graph a kill after two edge batches replays
+    them (``add_edges`` on the host) to the clean run's labels."""
+    import os
+    import tempfile
+
+    from repro_torch.cluster import (ClusterSupervisorConfig,
+                                     PartitionSupervisor,
+                                     corrupt_newest_snapshot_at,
+                                     kill_worker_at)
+    from repro_torch.core import EngineOptions, SpinnerConfig
+    from repro_torch.kernels.spinner_scores import fused_update
+
+    opts = EngineOptions(device=dev, score_backend="cuda")
+    cfg = SpinnerConfig(k=K)
+    work = [("partition", {})] + [("adapt", {})] * 3
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, faults in (
+                ("clean", []), ("kill", [kill_worker_at(2)]),
+                ("torn", [corrupt_newest_snapshot_at(2),
+                          kill_worker_at(2)])):
+            sup = PartitionSupervisor(
+                ClusterSupervisorConfig(snapshot_dir=os.path.join(tmp, name)),
+                lambda ndev: (graph, cfg, opts))
+            k1 = fused_update.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            session, results = sup.run(work, faults=faults)
+            torch.cuda.synchronize()
+            runs[name] = dict(
+                wall_s=time.perf_counter() - t0, stats=sup.stats(),
+                labels=session.labels.copy(), results=results,
+                k1_launches=fused_update.launches - k1,
+                iterations=[r.iterations for r in results])
+            session.close()
+        med = {}
+        g = medium[0]
+        gen = np.random.default_rng(17)
+        d1, d2 = (tuple(gen.integers(0, g.num_vertices, 2000)
+                        for _ in range(2)) for _ in range(2))
+        mwork = [("partition", {}),
+                 ("update", {"edge_src": d1[0], "edge_dst": d1[1]}),
+                 ("adapt", {}), ("adapt", {"edge_updates": d2}),
+                 ("adapt", {})]
+        for name, faults in (("clean", []), ("kill", [kill_worker_at(4)])):
+            sup = PartitionSupervisor(
+                ClusterSupervisorConfig(
+                    snapshot_dir=os.path.join(tmp, "medium_" + name)),
+                lambda ndev: (g, cfg, opts))
+            session, _ = sup.run(mwork, faults=faults)
+            med[name] = (session.labels.copy(), session.delta_watermark,
+                         sup.stats()["restarts"])
+            session.close()
+    clean = runs["clean"]
+    check(clean["stats"]["restarts"] == 0
+          and clean["k1_launches"] == sum(clean["iterations"]),
+          f"(l2) clean: {clean['stats']['restarts']} restarts, K1 "
+          f"{clean['k1_launches']} launches in {clean['iterations']}")
+    for name in ("kill", "torn"):
+        r, st = runs[name], runs[name]["stats"]
+        check(st["restarts"] == 1 and st["snapshots_restored"] == 1
+              and np.array_equal(r["labels"], clean["labels"])
+              and all(np.array_equal(a.labels, b.labels) for a, b in
+                      zip(r["results"], clean["results"])),
+              f"(l2) {name}: restarts {st['restarts']}, labels differ from "
+              "the clean run's")
+    check(runs["torn"]["stats"]["corrupt_skipped"] >= 1
+          and runs["torn"]["stats"]["snapshots_corrupted"] == 1,
+          "(l2) the torn snapshot was not skipped")
+    check(med["kill"][2] == 1 and med["kill"][1] == med["clean"][1] == 2
+          and np.array_equal(med["kill"][0], med["clean"][0]),
+          "(l2) the medium graph's replay of two edge batches differs")
+    for name, r in runs.items():
+        st = r["stats"]
+        print(f"(l2) PartitionSupervisor {name} [{smi}]: partition + 3 "
+              f"adapts on the full graph in {r['wall_s']:.3f}s, iterations "
+              f"{r['iterations']}, K1 launches {r['k1_launches']}, restarts "
+              f"{st['restarts']}, snapshots written/restored/skipped "
+              f"{st['snapshots_written']}/{st['snapshots_restored']}/"
+              f"{st['corrupt_skipped']}, recover seconds "
+              f"{[round(x, 6) for x in st['recover_seconds']]}", flush=True)
+    print(f"(l2) kill and torn runs identical to the clean run (every "
+          f"item's labels); medium graph: a kill after two edge batches "
+          f"replays them (watermark {med['kill'][1]}) to the clean run's "
+          f"labels", flush=True)
+    report["cluster_supervisor"] = {
+        name: dict(wall_s=r["wall_s"], iterations=r["iterations"],
+                   k1_launches=r["k1_launches"],
+                   recover_seconds=r["stats"]["recover_seconds"],
+                   corrupt_skipped=r["stats"]["corrupt_skipped"])
+        for name, r in runs.items()}
+
+
+def phase_cluster_deployment(graphs, dev, smi: str, report: dict) -> None:
+    """(l3) ``PartitionScheduler(deployment=ClusterDeployment(...))`` over
+    (k1)'s tenants on the CUDA backend: every tenant partitioned through
+    the scheduler (snapshotted), then one round of bursts with tenant 0's
+    dispatch poisoned once -- recovered from its snapshot and retried;
+    every ticket identical to its twin session's."""
+    import tempfile
+
+    from repro_torch.cluster import ClusterDeployment
+    from repro_torch.core import (EngineOptions, SpinnerConfig, delta,
+                                  open_session)
+    from repro_torch.kernels.spinner_scores import fused_update
+    from repro_torch.serve import PartitionScheduler, traffic
+
+    cfg = SpinnerConfig(k=K)
+    opts = EngineOptions(device=dev, score_backend="cuda")
+    gen = np.random.default_rng(23)
+    bursts = [[traffic.random_edge_updates(g.num_vertices, SERVE_PAIRS, gen)
+               for _ in range(SERVE_BURST)] for g in graphs]
+    with tempfile.TemporaryDirectory() as tmp:
+        dep = ClusterDeployment(tmp)
+        sched = PartitionScheduler(deployment=dep)
+        for i, g in enumerate(graphs):
+            sched.add_tenant(f"t{i}", g, cfg, opts)
+        k1 = fused_update.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        parts = [sched.submit(f"t{i}", "partition")
+                 for i in range(len(graphs))]
+        sched.drain()
+        # tenant 0's next run fails once, after its window's edges joined
+        # the delta log (as a failed launch would)
+        sess = sched.tenants["t0"].session
+        orig, armed = sess._fast_bind, [True]
+
+        def poisoned(*a, **kw):
+            if armed[0]:
+                armed[0] = False
+                raise RuntimeError("injected dispatch failure")
+            return orig(*a, **kw)
+
+        sess._fast_bind = poisoned
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tks = [[sched.submit(f"t{i}", "edge_updates", edge_updates=b)
+                for b in bs] for i, bs in enumerate(bursts)]
+        sched.drain()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        k1_launches = fused_update.launches - k1
+        st = sched.stats()
+    check(st["errors"] == 0 and st["queued"] == 0 and st["recoveries"] == 1
+          and st["deployment"]["recoveries"] == 1 and not armed[0],
+          f"(l3) errors {st['errors']}, recoveries {st['recoveries']}, "
+          f"deployment {st['deployment']}")
+    for i, g in enumerate(graphs):
+        twin = open_session(g, cfg, opts)
+        check(_same_result(parts[i].result,
+                           twin.partition(record_history=False)),
+              f"(l3) tenant {i}'s partition differs from its twin's")
+        want = twin.adapt(edge_updates=delta.coalesce_updates(bursts[i]),
+                          record_history=False)
+        check(all(tk.result is tks[i][-1].result for tk in tks[i])
+              and _same_result(tks[i][-1].result, want),
+              f"(l3) tenant {i}'s window differs from its twin's adapt")
+        twin.close()
+    iters = sum(p.result.iterations for p in parts) + sum(
+        row[-1].result.iterations for row in tks)
+    print(f"(l3) PartitionScheduler(deployment=ClusterDeployment) [{smi}]: "
+          f"{len(graphs)} CUDA-backend tenants partitioned through the "
+          f"scheduler in {t1 - t0:.3f}s, then {len(graphs) * SERVE_BURST} "
+          f"edge-update requests with tenant 0's dispatch poisoned once, "
+          f"drained in {t2 - t1:.3f}s; recoveries {st['recoveries']}, "
+          f"snapshots written {st['deployment']['snapshots_written']}, "
+          f"errors {st['errors']}; K1 launches {k1_launches} (iterations "
+          f"{iters} plus the failed window's); every ticket identical to "
+          f"its twin session's", flush=True)
+    report["cluster_deployment"] = dict(
+        partition_s=t1 - t0, round_s=t2 - t1, recoveries=st["recoveries"],
+        snapshots_written=st["deployment"]["snapshots_written"],
+        k1_launches=k1_launches, iterations=iters, card=smi)
+
+
 def print_rates(kernels: list) -> None:
     """(e) Each kernel's achieved rate, the bytes its bound counts over its
     measured time, beside the bound; adds ``achieved_bytes_per_s`` (and
@@ -2278,6 +2618,14 @@ def main() -> int:
     phase_serve_durability(serve_graphs, dev, smi, report)
     print(f"(k) phase (k) took {time.perf_counter() - t0:.3f}s [{smi}]",
           flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_cluster_workers(graph, dev, smi, report)
+    torch.cuda.empty_cache()
+    phase_cluster_supervisor(graph, medium, dev, smi, report)
+    phase_cluster_deployment(serve_graphs, dev, smi, report)
+    print(f"(l) phase (l) took {time.perf_counter() - t0:.3f}s [{smi}]",
+          flush=True)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB", flush=True)
 
@@ -2338,6 +2686,12 @@ def main() -> int:
                 "k1_launches"]
             r["launches_serve_poisson"] = report["serve_poisson"][
                 "k1_launches"]
+            # (l2), (l3): the supervised sessions and the deployment
+            r["launches_cluster_supervisor"] = sum(
+                x["k1_launches"]
+                for x in report["cluster_supervisor"].values())
+            r["launches_cluster_deployment"] = report["cluster_deployment"][
+                "k1_launches"]
         if r["name"] in ("pregel_reduce_csr", "pregel_combine_csr"):
             # (i): K3 over each rank's interior, K4 over its frontier
             part = "k3" if r["name"] == "pregel_reduce_csr" else "k4"
@@ -2357,7 +2711,13 @@ def main() -> int:
               interior_ms_world_1=report["sharded_main"]["split"][
                   "interior_ms"],
               launches_overlap=report["sharded_main"]["on"][
-                  "interior_launches"])
+                  "interior_launches"],
+              # (l1): every cluster worker's supersteps, one launch each
+              launches_cluster_worker=report["cluster_workers"][
+                  "k2_launches"],
+              **{f"{key}_cluster_worker_rows": report["cluster_workers"][
+                  "k2_rows"][key] for key in ("ms", "plain_ms",
+                                              "bound_ms")})
     print(json.dumps({"kernels": kernels}))
     if dist.is_initialized():
         dist.destroy_process_group()

@@ -25,10 +25,10 @@ runner, SPMD over ``torch.distributed``).  What remains here:
     call, the host syncing on ``halted`` every iteration (the
     dispatch-overhead baseline), same trajectory as ``run_sharded``;
   * ``partition_distributed`` -- ``partition(engine="sharded")`` returning
-    (labels, comm stats).
-
-``shard_graph(local_only=)`` and ``EdgeShardView``, the multi-host loading
-path of the cluster bootstrap, are not ported yet (ROADMAP.md Slice F).
+    (labels, comm stats);
+  * ``EdgeShardView`` / ``shard_graph(local_only=, seg_widths=)`` -- the
+    multi-host loading path of the cluster bootstrap: one host's row built
+    from its edge file alone.
 """
 from __future__ import annotations
 
@@ -40,11 +40,6 @@ import torch
 
 from . import engine
 from .graph import Graph, shape_bucket
-
-_SLICE_F = ("the multi-host loading path (shard_graph(local_only=), "
-            "EdgeShardView) belongs to the cluster bootstrap, which the "
-            "PyTorch port does not have yet (ROADMAP.md Slice F)")
-
 
 @dataclasses.dataclass(frozen=True)
 class ShardGeometry:
@@ -87,12 +82,22 @@ class ShardedGraph:
                                      repr=False)
 
 
+@dataclasses.dataclass(frozen=True)
 class EdgeShardView:
-    """One host's edge file as ``shard_graph(local_only=...)`` input: the
-    cluster bootstrap's loading path, not ported yet."""
+    """One host's edge file as ``shard_graph(local_only=...)`` input.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_SLICE_F)
+    The cluster bootstrap (``repro_torch.cluster.bootstrap``) splits a
+    graph's directed entries by owning host into one file per host; a
+    worker loads ONLY its file, so it never holds the full O(E) edge set.
+    ``deg_w`` is the full (V,) weighted-degree vector, the O(V) vertex
+    state shipped beside the files.
+    """
+
+    num_vertices: int
+    src: np.ndarray
+    dst: np.ndarray
+    weight: np.ndarray
+    deg_w: np.ndarray
 
 
 def shard_graph(graph, ndev: int, pad: bool = False, *,
@@ -108,9 +113,14 @@ def shard_graph(graph, ndev: int, pad: bool = False, *,
     frontier to a power of two (at least 128).  Pad slots carry weight 0
     and point at the device's own vertex 0.  At one device every edge is
     interior.
+
+    ``local_only=p`` is the per-host loading path: ``graph`` holds ONLY
+    host ``p``'s edges (a ``Graph`` or an ``EdgeShardView`` of one edge
+    file) and the result has a single row, byte for byte row ``p`` of the
+    full layout when ``seg_widths`` passes the agreed raw ``(max interior,
+    max frontier)`` counts (the shard manifest's; bucketed by ``pad`` as
+    above).  Without ``seg_widths`` the widths are the host's own counts.
     """
-    if local_only is not None or seg_widths is not None:
-        raise NotImplementedError(_SLICE_F)
     v_per_dev = -(-graph.num_vertices // ndev)
     v_pad = v_per_dev * ndev
     real = graph.weight > 0
@@ -118,13 +128,29 @@ def shard_graph(graph, ndev: int, pad: bool = False, *,
     frontier_all = (graph.dst // v_per_dev) != owner_all
     oidx_all = np.arange(graph.src.shape[0], dtype=np.int32)
     owner, frontier = owner_all[real], frontier_all[real]
-    n_int, n_fro, e_int, e_fro = _segments(owner, frontier, ndev, pad)
+    if local_only is not None:
+        if not 0 <= local_only < ndev:
+            raise ValueError(f"local_only={local_only} outside [0, {ndev})")
+        if owner.size and not (owner == local_only).all():
+            raise ValueError(
+                f"local_only={local_only}: edge list contains edges owned "
+                f"by hosts {sorted(set(np.unique(owner)) - {local_only})}")
+    n_int, n_fro = _counts(owner, frontier, ndev)
+    if local_only is None:
+        raw = (n_int.max(), n_fro.max())
+    elif seg_widths is not None:
+        raw = seg_widths
+    else:
+        raw = (n_int[local_only], n_fro[local_only])
+    e_int, e_fro = _widths(int(raw[0]), int(raw[1]), pad)
     e_shard = e_int + e_fro
-    src_l = np.zeros((ndev, e_shard), np.int32)
-    w = np.zeros((ndev, e_shard), np.float32)
-    perm = np.full((ndev, e_shard), -1, np.int32)
+    devs = range(ndev) if local_only is None else (local_only,)
+    rows = len(devs)
+    src_l = np.zeros((rows, e_shard), np.int32)
+    w = np.zeros((rows, e_shard), np.float32)
+    perm = np.full((rows, e_shard), -1, np.int32)
     # pad slots read the owner's vertex 0 under every dst layout
-    dst = np.tile((np.arange(ndev, dtype=np.int32) * v_per_dev)[:, None],
+    dst = np.tile((np.asarray(devs, np.int32) * v_per_dev)[:, None],
                   (1, e_shard))
     # stable sort by (owner, frontier flag): per device, the interior run
     # comes first, each run in CSR order
@@ -135,41 +161,50 @@ def shard_graph(graph, ndev: int, pad: bool = False, *,
     oidx = oidx_all[real][order]
     starts = np.zeros(2 * ndev + 1, np.int64)
     np.cumsum(np.stack([n_int, n_fro], axis=1).reshape(-1), out=starts[1:])
-    for p in range(ndev):
+    for row, p in enumerate(devs):
         for lo, hi, col in ((starts[2 * p], starts[2 * p + 1], 0),
                             (starts[2 * p + 1], starts[2 * p + 2], e_int)):
             n = hi - lo
-            src_l[p, col: col + n] = s[lo:hi] - p * v_per_dev
-            dst[p, col: col + n] = d[lo:hi]
-            w[p, col: col + n] = ww[lo:hi]
-            perm[p, col: col + n] = oidx[lo:hi]
-    deg = np.zeros(v_pad, np.float32)
-    deg[: graph.num_vertices] = graph.deg_w
+            src_l[row, col: col + n] = s[lo:hi] - p * v_per_dev
+            dst[row, col: col + n] = d[lo:hi]
+            w[row, col: col + n] = ww[lo:hi]
+            perm[row, col: col + n] = oidx[lo:hi]
+    if local_only is None:
+        deg = np.zeros(v_pad, np.float32)
+        deg[: graph.num_vertices] = graph.deg_w
+        deg = deg.reshape(ndev, v_per_dev)
+    else:
+        # deg_w is the full (V,) vector: take this host's range
+        p = local_only
+        deg = np.zeros((1, v_per_dev), np.float32)
+        lo, hi = p * v_per_dev, min((p + 1) * v_per_dev, graph.num_vertices)
+        deg[0, : hi - lo] = np.asarray(graph.deg_w)[lo:hi]
+        n_int, n_fro = n_int[[p]], n_fro[[p]]
     return ShardedGraph(num_vertices=v_pad,
                         num_real_vertices=graph.num_vertices, ndev=ndev,
                         v_per_dev=v_per_dev, src_local=src_l, dst=dst,
-                        weight=w, deg_w=deg.reshape(ndev, v_per_dev),
-                        e_interior=e_int, interior_counts=n_int,
-                        frontier_counts=n_fro, edge_perm=perm)
+                        weight=w, deg_w=deg, e_interior=e_int,
+                        interior_counts=n_int, frontier_counts=n_fro,
+                        edge_perm=perm, local_only=local_only)
 
 
-def _segments(owner: np.ndarray, frontier: np.ndarray, ndev: int,
-              pad: bool) -> tuple:
-    """``(interior counts, frontier counts, interior width, frontier
-    width)`` of the real entries' owners and frontier flags: the widths
-    are the largest counts, bucketed with ``pad`` (the interior by
-    ``shape_bucket``, the frontier to a power of two, at least 128)."""
-    n_int = np.bincount(owner[~frontier], minlength=ndev).astype(np.int64)
-    n_fro = np.bincount(owner[frontier], minlength=ndev).astype(np.int64)
-    e_int = int(n_int.max()) if n_int.size else 0
-    e_fro = int(n_fro.max()) if n_fro.size else 0
+def _counts(owner: np.ndarray, frontier: np.ndarray, ndev: int) -> tuple:
+    """Per-device counts of real interior and frontier entries."""
+    return (np.bincount(owner[~frontier], minlength=ndev).astype(np.int64),
+            np.bincount(owner[frontier], minlength=ndev).astype(np.int64))
+
+
+def _widths(e_int: int, e_fro: int, pad: bool) -> tuple:
+    """The segment widths of raw widths ``(e_int, e_fro)``, bucketed with
+    ``pad`` (the interior by ``shape_bucket``, the frontier to a power of
+    two, at least 128)."""
     if e_int + e_fro == 0:
         e_int = 1                       # keep one (zeroed) slot per shard
     if pad:
         e_int = shape_bucket(e_int, floor=128)
         if e_fro:                       # 1-device shards stay frontier-free
             e_fro = max(128, 1 << (e_fro - 1).bit_length())
-    return n_int, n_fro, e_int, e_fro
+    return e_int, e_fro
 
 
 def segment_widths(graph: Graph, ndev: int, pad: bool = False) -> tuple:
@@ -183,8 +218,9 @@ def segment_widths(graph: Graph, ndev: int, pad: bool = False) -> tuple:
         v_per_dev = -(-graph.num_vertices // ndev)
         real = graph.weight > 0
         owner = graph.src[real] // v_per_dev
-        n_int, n_fro, e_int, e_fro = _segments(
-            owner, (graph.dst[real] // v_per_dev) != owner, ndev, pad)
+        n_int, n_fro = _counts(
+            owner, (graph.dst[real] // v_per_dev) != owner, ndev)
+        e_int, e_fro = _widths(int(n_int.max()), int(n_fro.max()), pad)
         out = graph._cache[key] = (n_int, n_fro, e_int, e_int + e_fro)
     return out
 
@@ -370,8 +406,8 @@ def run_sharded_hostloop(graph: Graph, cfg, mesh, axis: str = "data",
     host read of ``halted`` after each: the same trajectory and iteration
     count as ``partition(engine="sharded")``; only the syncing differs."""
     from ..launch.mesh import mesh_device
-    from .spinner import prepare_init
-    opts = options if options is not None else engine.EngineOptions()
+    from .spinner import prepare_init, resolve_options
+    cfg, opts = resolve_options(cfg, options)
     labels, loads, key = prepare_init(graph, cfg, init,
                                       device=mesh_device(mesh))
     v_pad = engine.sharded_v_pad(graph, opts, mesh, axis)
@@ -391,8 +427,8 @@ def partition_distributed(graph: Graph, cfg, mesh, axis: str = "data",
     """Run sharded Spinner to the halting criterion; returns (labels,
     stats): ``partition(graph, cfg, engine="sharded", mesh=mesh)`` plus the
     per-iteration communication volume (``comm_stats``)."""
-    from .spinner import partition
-    opts = options if options is not None else engine.EngineOptions()
+    from .spinner import partition, resolve_options
+    cfg, opts = resolve_options(cfg, options)
     res = partition(graph, cfg, init=init, record_history=False,
                     engine="sharded", mesh=mesh, axis=axis, options=opts)
     padded, _ = engine.padded_view(graph, opts)

@@ -51,6 +51,10 @@ class Graph:
         return int(self.src.shape[0])
 
     @property
+    def num_undirected_edges(self) -> int:
+        return int(self.src.shape[0]) // 2
+
+    @property
     def total_weight(self) -> float:
         """Sum of weighted degrees = 2 * (weighted undirected edge count).
 
@@ -59,6 +63,25 @@ class Graph:
         trajectory.
         """
         return float(self.deg_w.sum())
+
+    def validate(self) -> None:
+        """Raise ``ValueError`` unless the arrays form a symmetric CSR:
+        equal lengths, ``row_ptr`` of V+1 non-decreasing offsets, ids in
+        range, and the multiset of (dst, src) equal to that of (src, dst)."""
+        if not self.src.shape == self.dst.shape == self.weight.shape:
+            raise ValueError("src, dst and weight differ in shape")
+        if self.row_ptr.shape != (self.num_vertices + 1,):
+            raise ValueError(f"row_ptr has shape {self.row_ptr.shape}, "
+                             f"expected ({self.num_vertices + 1},)")
+        if np.any(np.diff(self.row_ptr) < 0):
+            raise ValueError("row_ptr is not non-decreasing")
+        if self.src.size and (self.src.min() < 0
+                              or self.src.max() >= self.num_vertices):
+            raise ValueError("src holds ids outside [0, num_vertices)")
+        key_f = self.src.astype(np.int64) * self.num_vertices + self.dst
+        key_b = self.dst.astype(np.int64) * self.num_vertices + self.src
+        if not np.array_equal(np.sort(key_f), np.sort(key_b)):
+            raise ValueError("not symmetric")
 
     def on_device(self, device) -> bool:
         """Whether ``to_device(device)`` has uploaded the arrays already."""

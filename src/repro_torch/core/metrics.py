@@ -88,11 +88,12 @@ def frontier_fraction(sg) -> float:
     return float(frontier / total) if total else 0.0
 
 
-def summarize(graph: Graph, labels: np.ndarray, k: int,
-              c: float = 1.05) -> dict:
-    """Quality summary of one assignment."""
+def summarize(graph: Graph, labels: np.ndarray, k: int, c: float = 1.05,
+              sg=None) -> dict:
+    """Quality summary of one assignment; pass a ``ShardedGraph`` as
+    ``sg`` to add the layout's ``frontier_fraction``."""
     cv = comm_volume(graph, labels, k)
-    return {
+    out = {
         "phi": phi(graph, labels),
         "phi_weighted": phi_weighted(graph, labels),
         "rho": rho(graph, labels, k),
@@ -101,3 +102,6 @@ def summarize(graph: Graph, labels: np.ndarray, k: int,
         "comm_volume_max": int(cv.max()) if cv.size else 0,
         "k": k,
     }
+    if sg is not None:
+        out["frontier_fraction"] = frontier_fraction(sg)
+    return out

@@ -85,7 +85,8 @@ from . import metrics
 from .engine import EngineOptions
 from .graph import Graph, add_edges
 from .incremental import elastic_relabel, extend_labels
-from .spinner import PartitionResult, SpinnerConfig, prepare_init
+from .spinner import (PartitionResult, SpinnerConfig, prepare_init,
+                      resolve_options)
 
 _ENGINES = ("auto", "fused", "sharded", "chunked", "host")
 
@@ -122,7 +123,7 @@ class PartitionSession:
 
     def __init__(self, graph: Graph, cfg: SpinnerConfig,
                  options: Optional[EngineOptions] = None):
-        opts = options if options is not None else EngineOptions()
+        cfg, opts = resolve_options(cfg, options)
         self._mesh = None
         if opts.mesh is not None or opts.engine == "sharded":
             from ..launch.mesh import mesh_device

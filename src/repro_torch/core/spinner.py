@@ -25,19 +25,46 @@ loads and iteration count equal the reference package's.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
 from .. import rng
+from . import engine as _engine
 from .engine import EngineOptions
 from .graph import Graph
 
 
+class SpinnerDeprecationWarning(DeprecationWarning):
+    """Deprecated use of engine/runtime knobs on ``SpinnerConfig``.
+
+    A subclass of its own so that the in-repo deprecation surface can be
+    turned into errors (``-W error::repro_torch.core.spinner.
+    SpinnerDeprecationWarning``) without touching third-party warnings.
+    """
+
+
+# Deprecated engine-era fields and their "unset" sentinels.
+_LEGACY_FIELDS = {"use_kernel": False, "score_backend": None,
+                  "label_exchange": None, "delta_cap": None,
+                  "sharded_noise": None}
+# the reference's backend names, as this package spells them
+_LEGACY_BACKENDS = {"pallas": "cuda", "xla": "torch"}
+
+
 @dataclasses.dataclass(frozen=True)
 class SpinnerConfig:
-    """The paper's algorithm parameters (Sections 3.1-3.5) -- nothing else."""
+    """The paper's algorithm parameters (Sections 3.1-3.5) -- nothing else.
+
+    Engine/runtime knobs live in ``EngineOptions``.  The trailing fields
+    are the reference's deprecation shim for the pre-session API: setting
+    any of them warns ``SpinnerDeprecationWarning`` and
+    ``resolve_options`` folds them into the options (``use_kernel=True``
+    and ``score_backend="pallas"`` become the ``"cuda"`` backend,
+    ``"xla"`` the ``"torch"`` one).
+    """
 
     k: int
     c: float = 1.05                    # capacity slack (Eq. 5)
@@ -50,10 +77,79 @@ class SpinnerConfig:
     migration_weighting: str = "edges"
     tie_noise: float = 1e-7            # random tie-break amplitude
     current_bonus: float = 1e-6        # prefer the current label on ties
+    # ---- deprecated shim (moved to EngineOptions) ----------------------
+    use_kernel: bool = False           # -> EngineOptions(score_backend=...)
+    score_backend: Optional[str] = None
+    label_exchange: Optional[str] = None
+    delta_cap: Optional[int] = None
+    sharded_noise: Optional[str] = None
+
+    def __post_init__(self):
+        legacy = [f for f, unset in _LEGACY_FIELDS.items()
+                  if getattr(self, f) != unset]
+        if legacy:
+            warnings.warn(
+                f"SpinnerConfig({', '.join(legacy)}) is deprecated: "
+                "engine/runtime knobs moved to "
+                "repro_torch.core.engine.EngineOptions (pass options= to "
+                "partition()/PartitionSession)",
+                SpinnerDeprecationWarning, stacklevel=3)
 
     def capacity(self, graph: Graph) -> float:
         """C per Eq. (5), in weighted-degree units."""
         return self.c * graph.total_weight / self.k
+
+
+def _scrub_legacy(cfg: SpinnerConfig) -> SpinnerConfig:
+    """The config with the deprecated fields reset to their sentinels, so
+    internal ``dataclasses.replace`` calls never warn again."""
+    if any(getattr(cfg, f) != unset for f, unset in _LEGACY_FIELDS.items()):
+        return dataclasses.replace(cfg, **_LEGACY_FIELDS)
+    return cfg
+
+
+def resolve_options(cfg: SpinnerConfig,
+                    options: Optional[EngineOptions] = None, *,
+                    engine: str = "auto",
+                    chunk_size: Optional[int] = None,
+                    mesh=None,
+                    axis: str = "data",
+                    device=None,
+                    ) -> tuple:
+    """Merge (options, per-call kwargs, deprecated config fields).
+
+    Returns ``(scrubbed cfg, resolved EngineOptions)``.  Precedence:
+    explicit per-call kwargs > an explicit ``options`` object > the
+    deprecated ``SpinnerConfig`` fields, which only fill options still at
+    their defaults.
+    """
+    opts = options if options is not None else EngineOptions()
+    over = {}
+    if engine != "auto":
+        over["engine"] = engine
+    if chunk_size is not None:
+        over["chunk_size"] = chunk_size
+    if mesh is not None:
+        over["mesh"] = mesh
+    if axis != "data":
+        over["axis"] = axis
+    if device is not None:
+        over["device"] = device
+    if opts.score_backend == EngineOptions.score_backend:
+        if cfg.score_backend is not None:
+            over["score_backend"] = _LEGACY_BACKENDS.get(
+                cfg.score_backend, cfg.score_backend)
+        elif cfg.use_kernel:
+            over["score_backend"] = "cuda"
+    if cfg.label_exchange is not None and opts.label_exchange == "auto":
+        over["label_exchange"] = cfg.label_exchange
+    if cfg.delta_cap is not None and opts.delta_cap is None:
+        over["delta_cap"] = cfg.delta_cap
+    if cfg.sharded_noise is not None and opts.sharded_noise == "replicated":
+        over["sharded_noise"] = cfg.sharded_noise
+    if over:
+        opts = dataclasses.replace(opts, **over)
+    return _scrub_legacy(cfg), opts
 
 
 @dataclasses.dataclass
@@ -84,6 +180,18 @@ def compute_loads(graph: Graph, labels: torch.Tensor, k: int) -> torch.Tensor:
     deg = torch.from_numpy(np.ascontiguousarray(graph.deg_w, np.float32))
     loads = torch.zeros(k, dtype=torch.float32, device=labels.device)
     return loads.index_add_(0, labels.long(), deg.to(labels.device))
+
+
+def make_step(graph: Graph, cfg: SpinnerConfig, *,
+              device=None) -> Callable:
+    """One LPA iteration bound to ``graph`` at its exact shapes (no
+    padding): ``step(labels, loads, key) -> (labels, loads, score_g,
+    n_mig, mig_mass)``, ``key`` the iteration's key.  The reference's
+    ``make_step(graph, cfg)``, kept for host-loop callers; it runs on the
+    card unless ``device="cpu"``."""
+    cfg, opts = resolve_options(cfg, device=device)
+    opts = dataclasses.replace(opts, pad="none")
+    return _engine.make_host_step(graph, cfg, opts, opts.resolved_device())
 
 
 def prepare_init(graph: Graph, cfg: SpinnerConfig,
@@ -143,20 +251,9 @@ def partition(graph: Graph,
     (host, chunked); asking the fused runner for history or a callback is
     an error.
     """
-    opts = options if options is not None else EngineOptions()
-    over = {}
-    if engine != "auto":
-        over["engine"] = engine
-    if chunk_size is not None:
-        over["chunk_size"] = chunk_size
-    if mesh is not None:
-        over["mesh"] = mesh
-    if axis != "data":
-        over["axis"] = axis
-    if device is not None:
-        over["device"] = device
-    if over:
-        opts = dataclasses.replace(opts, **over)
+    cfg, opts = resolve_options(cfg, options, engine=engine,
+                                chunk_size=chunk_size, mesh=mesh, axis=axis,
+                                device=device)
     from .session import PartitionSession    # lazy: session imports us
     with PartitionSession(graph, cfg, opts) as session:
         return session.partition(init=init, record_history=record_history,

@@ -12,6 +12,12 @@ The flags keep float arithmetic IEEE: ``-fmad=false`` and never
 held bit for bit to the plain PyTorch version, and PageRank's
 ``base + damping * acc`` must round as the reference's does.
 
+Two processes may build at once (the cluster's workers share a card and
+a checkout): ``build`` holds an ``flock`` on ``build/kernels/.lock``
+while it checks and compiles, so the second waits and then finds the
+libraries built.  An ``flock`` is released by the kernel when its
+process ends, so a build cut short leaves nothing that blocks the next.
+
 ``check`` and ``launch`` are the wrappers' shared halves: validate a
 tensor before its pointer is passed, and call a C entry point on the
 tensors' device pointers, raising on the CUDA error it returns.
@@ -19,6 +25,7 @@ tensors' device pointers, raising on the CUDA error it returns.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -64,6 +71,12 @@ def build(names=SOURCES) -> dict:
     started has ended.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)      # released when lock closes
+        return _build_locked(names)
+
+
+def _build_locked(names) -> dict:
     t0 = time.perf_counter()
     running = {}
     for name in names:
@@ -82,7 +95,7 @@ def build(names=SOURCES) -> dict:
             f"{n}.cu:\n{logs[n][0]}" for n in failed))
     built = {}
     for name, (out, tmp, _) in running.items():
-        os.replace(tmp, out)          # atomic: concurrent builds agree
+        os.replace(tmp, out)          # atomic: a loader sees all or none
         log, seconds = logs[name]
         built[name] = (seconds, log)
     return built

@@ -18,7 +18,7 @@ the world: launch one process per card (``torch.multiprocessing`` or
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -40,7 +40,9 @@ def _one_rank_group(device_type: str) -> None:
 
 
 def make_partition_mesh(num_devices: Optional[int] = None,
-                        axis: str = "data", device=None) -> DeviceMesh:
+                        axis: str = "data", device=None,
+                        devices: Optional[Sequence[int]] = None
+                        ) -> DeviceMesh:
     """1-D vertex-sharding mesh for the sharded LPA engine.
 
     ``partition(g, cfg, engine="sharded", mesh=make_partition_mesh())``
@@ -48,9 +50,24 @@ def make_partition_mesh(num_devices: Optional[int] = None,
     ``device`` is ``None`` (the CUDA card; raises without one) or
     ``"cpu"``.  Asking for more devices than the world holds raises
     ``ValueError``, as does asking for fewer: a mesh spans the group.
+
+    ``devices`` pins an explicit list of ranks of the world instead (the
+    reference's explicit device list): the mesh is over the first
+    ``num_devices`` of them (all by default), and more than the list holds
+    raises ``ValueError``.  Building it creates the subgroup, which is
+    collective over the whole world: every rank makes the same call, and a
+    rank outside the list gets a mesh it is not a member of
+    (``mesh.get_coordinate()`` is ``None``) and must not run on it.
     """
     from ..core.engine import resolve_device   # lazy: engine imports us
     dev_type = resolve_device(device).type
+    if devices is not None:
+        pool = [int(r) for r in devices]
+        if num_devices is not None and num_devices > len(pool):
+            raise ValueError(f"need {num_devices} devices, have "
+                             f"{len(pool)} in devices={pool}")
+        num_devices = len(pool) if num_devices is None else num_devices
+        pool = pool[:num_devices]
     if not dist.is_initialized():
         if num_devices not in (None, 1):
             raise ValueError(
@@ -59,6 +76,16 @@ def make_partition_mesh(num_devices: Optional[int] = None,
                 "before building a larger mesh")
         _one_rank_group(dev_type)
     world = dist.get_world_size()
+    if devices is not None and pool != list(range(world)):
+        if len(set(pool)) != len(pool) or not all(
+                0 <= r < world for r in pool):
+            raise ValueError(f"devices={pool} must be distinct ranks of a "
+                             f"world of {world}")
+        mesh = DeviceMesh(dev_type, torch.tensor(pool),
+                          mesh_dim_names=(axis,))
+        if mesh.get_coordinate() is not None:
+            mesh_group(mesh, axis)  # a CUDA mesh on a gloo group raises
+        return mesh
     n = world if num_devices is None else int(num_devices)
     if n > world:    # not an assert: must survive python -O
         raise ValueError(f"need {n} devices, have {world} processes in the "

@@ -30,7 +30,7 @@ Dispatch order is priority-weighted staleness (age of the tenant's
 oldest queued request x tenant priority), with an optional hard
 ``preempt_staleness`` SLO that jumps an aging tenant to the front.
 
-The port departs from the reference in four places:
+The port departs from the reference in three places:
 
 * **No compile accounting.**  PyTorch runs eagerly and the kernels build
   once per source hash (``kernels/_build.py``), so nothing compiles per
@@ -43,9 +43,12 @@ The port departs from the reference in four places:
   nothing to compile per k.
 * **``default_batch_min``** asks ``torch.cuda.is_available()`` where the
   reference asks ``jax.devices()``.
-* **``deployment=``** (the reference's cluster mode) is accepted only as
-  ``None`` until ``cluster/deploy.py`` is ported; a failed dispatch
-  fails its window, as the reference does without a deployment.
+
+Under ``deployment=`` (``repro_torch.cluster.ClusterDeployment``) every
+tenant is admitted through the deployment (pinned to its mesh),
+snapshotted after committed dispatches on its cadence, and a dispatch that
+raises is recovered from the tenant's newest snapshot and retried once;
+without one, a failed dispatch fails its window.
 
 A scheduler on a machine without a card raises on ``add_tenant`` unless
 the tenant's options ask for ``device="cpu"`` (the session's own rule).
@@ -188,12 +191,8 @@ class PartitionScheduler:
                  clock: Callable[[], float] = time.monotonic) -> None:
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
-        if deployment is not None:
-            raise NotImplementedError(
-                "deployment= needs the cluster runtime (cluster/deploy.py, "
-                "ROADMAP.md queue 1 item F2), which is not ported yet")
         self.max_batch = max_batch
-        self.deployment = None
+        self.deployment = deployment
         self._recoveries = 0
         self.batch_min = max(1, default_batch_min() if batch_min is None
                              else batch_min)
@@ -231,6 +230,8 @@ class PartitionScheduler:
         request must be ``partition``."""
         if name in self.tenants:
             raise ValueError(f"tenant {name!r} already registered")
+        if self.deployment is not None:
+            options = self.deployment.admit(name, options)
         t = Tenant(name=name,
                    session=PartitionSession(graph, cfg, options),
                    priority=float(priority))
@@ -358,13 +359,13 @@ class PartitionScheduler:
                 completed += self._finish(t, window,
                                           t.session.commit_adapt(out))
             except Exception as e:
-                completed += self._fail(t, window, e)
+                completed += self._resolve_failure(t, window, e)
         for t, window in serial:
             try:
                 completed += self._finish(t, window,
                                           self._dispatch_serial(t, window))
             except Exception as e:
-                completed += self._fail(t, window, e)
+                completed += self._resolve_failure(t, window, e)
         return completed
 
     def drain(self, max_rounds: Optional[int] = None) -> int:
@@ -459,12 +460,55 @@ class PartitionScheduler:
         t.completed += len(window)
         self._completed += len(window)
         self._last_finish = now
+        if self.deployment is not None:
+            self.deployment.after_commit(t.name, t.session)
         return len(window)
+
+    def _resolve_failure(self, t: Tenant, window: List[Ticket],
+                         err: BaseException) -> int:
+        """A dispatch raised: under a deployment, recover the tenant from
+        its newest snapshot and retry the window ONCE; otherwise (or when
+        recovery cannot proceed) fail the tickets.  The recovery graph is
+        the failed session's materialized logical graph -- base plus every
+        accepted delta batch, INCLUDING this window's (``adapt_parts`` /
+        ``adapt`` append to the pending log before dispatching) -- so the
+        retry is a plain reconvergence: re-applying the window's edge
+        updates would count them twice.  A resize committed after the
+        newest snapshot is rolled forward by ``recover`` (not when the
+        retried window is itself a resize, which sets k)."""
+        if self.deployment is None:
+            return self._fail(t, window, err)
+        try:
+            graph = t.session.graph       # materializes the delta log
+            info = self.deployment.recover(
+                t.name, graph, options=t.session.options,
+                roll_forward_k=window[-1].kind != "resize")
+            if info is None:              # no snapshot yet: fail normally
+                return self._fail(t, window, err)
+            old, t.session = t.session, info.session
+            old.close()
+            self._recoveries += 1
+            last = window[-1]
+            t.serial_dispatches += 1
+            self._serial_dispatches += 1
+            if last.kind == "partition":
+                res = t.session.partition(record_history=False)
+            elif last.kind == "resize":
+                res = t.session.resize(last.payload["k"],
+                                       record_history=False)
+            else:
+                kw: dict = {"record_history": False}
+                if last.payload.get("new_graph") is not None:
+                    kw["new_graph"] = last.payload["new_graph"]
+                res = t.session.adapt(**kw)
+            return self._finish(t, window, res)
+        except Exception as e:
+            return self._fail(t, window, e)
 
     def _fail(self, t: Tenant, window: List[Ticket],
               err: BaseException) -> int:
         """Fail a window's tickets (a bad request, or a dispatch that
-        raised; the reference's recover-and-retry needs a deployment)."""
+        raised and was not recovered)."""
         now = self.clock()
         for tk in window:
             tk.done, tk.error, tk.finish = True, err, now
@@ -533,5 +577,6 @@ class PartitionScheduler:
                          for p in self.policies},
             "policy_errors": list(self._policy_errors),
             "recoveries": self._recoveries,
-            "deployment": None,
+            "deployment": (self.deployment.stats()
+                           if self.deployment is not None else None),
         }

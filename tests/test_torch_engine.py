@@ -256,10 +256,12 @@ def test_halved_weights_match_reference(halved_runs, backend, fused):
 
 def test_imports_neither_jax_nor_reference():
     """The port (its application layer, session, mesh, exchange plans,
-    sharded layout, distributed PageRank and placement too) and
-    chip_smoke.py load without JAX or ``repro``."""
+    sharded layout, distributed PageRank, placement, the cluster runtime
+    and its worker too), its examples and chip_smoke.py load without JAX,
+    ``repro`` or msgpack."""
     code = (
         "import sys; sys.path.insert(0, 'src'); sys.path.insert(0, '.')\n"
+        "sys.path.insert(0, 'examples')\n"
         "import repro_torch, repro_torch.core, repro_torch.kernels\n"
         "import repro_torch.apps, repro_torch.core.pregel\n"
         "import repro_torch.core.session, repro_torch.core.delta\n"
@@ -268,20 +270,25 @@ def test_imports_neither_jax_nor_reference():
         "import repro_torch.core.pregel_dist, repro_torch.core.placement\n"
         "import repro_torch.convert, repro_torch.rng, chip_smoke\n"
         "import repro_torch.serve, repro_torch.ckpt, repro_torch.runtime\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'repro' or m.startswith('repro.')]\n"
+        "import repro_torch.cluster, repro_torch.cluster.worker\n"
+        "import torch_quickstart, torch_partition_and_analyze\n"
+        "import torch_elastic_resize\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'repro', 'msgpack')]\n"
         "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     sources = list((REPO / "src" / "repro_torch").rglob("*.py"))
+    sources += list((REPO / "examples").glob("torch_*.py"))
     sources.append(REPO / "chip_smoke.py")
     for path in sources:
         for line in path.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
                 mod = words[1].split(".")[0]
-                assert mod not in ("jax", "jaxlib", "repro"), (path, line)
+                assert mod not in ("jax", "jaxlib", "repro", "msgpack"), (
+                    path, line)
 
 
 def test_no_card_raises_instead_of_falling_back(small_world, monkeypatch):

@@ -987,3 +987,98 @@ def test_checkpointed_session_continues_on_card(cuda, tmp_path):
     np.testing.assert_array_equal(got.labels, want.labels)
     np.testing.assert_array_equal(got.loads, want.loads)
     assert (got.iterations, got.halted) == (want.iterations, want.halted)
+
+
+def test_process_cluster_on_card_matches_cpu(cuda, tmp_path):
+    """Two worker processes on one card lose worker 1 at iteration 6; the
+    recovered labels equal an uninterrupted one-process CPU run, and each
+    worker launched K2 once a superstep."""
+    import json
+    import os
+
+    from repro_torch.cluster import (ProcessClusterConfig,
+                                     ProcessClusterSupervisor,
+                                     write_edge_shards)
+    g = generators.watts_strogatz(20_000, 10, 0.3, seed=4)
+    shards = str(tmp_path / "shards")
+    write_edge_shards(g, shards, num_hosts=2)
+    job = {"shard_dir": shards, "k": 8, "seed": 2, "max_iters": 16,
+           "snapshot_every": 4, "rpc_timeout": 120}
+    wd = str(tmp_path / "card")
+    out = ProcessClusterSupervisor(
+        ProcessClusterConfig(workdir=wd, num_processes=2),
+        {**job, "device": "cuda",
+         "fault": {"gen": 0, "pid": 1, "iteration": 6}}).run()
+    assert out["restarts"] == 1 and out["result"]["world"] == 1
+    ProcessClusterSupervisor(
+        ProcessClusterConfig(workdir=str(tmp_path / "cpu"), num_processes=1),
+        {**job, "device": "cpu"}).run()
+    np.testing.assert_array_equal(
+        np.load(os.path.join(wd, "labels.npy")),
+        np.load(str(tmp_path / "cpu" / "labels.npy")))
+    for name in os.listdir(wd):
+        if name.startswith("stats_g"):
+            with open(os.path.join(wd, name)) as f:
+                st = json.load(f)
+            assert st["device"].startswith("cuda")
+            assert st["k2_launches"] == st["supersteps"] > 0, st
+
+
+@pytest.mark.parametrize("world,pid", [(1, 0), (2, 1), (3, 0)])
+def test_worker_rows_scores_match_plain(cuda, tmp_path, world, pid):
+    """K2 over the CSR of a worker's rows with the full label vector as its
+    lookup, on the card, bitwise equal to its plain version."""
+    from repro_torch.cluster import write_edge_shards
+    from repro_torch.cluster.worker import owned_csr
+    g = generators.powerlaw_ba(6_000, 6, seed=3)
+    man = write_edge_shards(g, str(tmp_path), num_hosts=4)
+    owned = [h for h in range(4) if h % world == pid]
+    rows, row_ptr, src, dst, w = owned_csr(str(tmp_path), owned,
+                                           man["v_per_host"], g.num_vertices)
+    k = 32
+    labels = torch.from_numpy(np.random.default_rng(pid).integers(
+        0, k, g.num_vertices).astype(np.int32))
+    args = [torch.from_numpy(a) for a in (row_ptr, dst, w)]
+    own = labels[torch.from_numpy(rows)]
+    want = spinner_scores(own, *args, k, lookup=labels)
+    n = spinner_scores.launches
+    got = spinner_scores(own.to(cuda), *(a.to(cuda) for a in args), k,
+                         lookup=labels.to(cuda))
+    assert spinner_scores.launches == n + 1
+    assert _bits_equal(got.cpu(), want)
+
+
+def test_deployment_recovers_on_card(cuda, tmp_path):
+    """A CUDA-backend tenant under a ClusterDeployment: a window whose run
+    fails is recovered from its snapshot and retried, equal to a twin
+    session."""
+    from repro_torch.cluster import ClusterDeployment
+    from repro_torch.serve import PartitionScheduler, traffic
+    g = traffic.tenant_graph(20_000, seed=1, k_nbrs=16)
+    cfg = SpinnerConfig(k=16, seed=1)
+    opts = EngineOptions(device=cuda, score_backend="cuda")
+    dep = ClusterDeployment(str(tmp_path))
+    sched = PartitionScheduler(deployment=dep)
+    sched.add_tenant("a", g, cfg, opts)
+    sched.submit("a", "partition")
+    assert sched.drain() == 1
+    sess = sched.tenants["a"].session
+    orig, armed = sess._fast_bind, [True]
+
+    def poisoned(*a, **kw):        # fails after the window's edges joined
+        if armed[0]:               # the delta log, as a failed launch does
+            armed[0] = False
+            raise RuntimeError("injected dispatch failure")
+        return orig(*a, **kw)
+
+    sess._fast_bind = poisoned
+    b = traffic.random_edge_updates(g.num_vertices, 400,
+                                    np.random.default_rng(5))
+    tk = sched.submit("a", "edge_updates", edge_updates=b)
+    assert sched.drain() == 1 and not tk.failed, tk.error
+    assert sched.stats()["recoveries"] == 1 == dep.recoveries
+    twin = open_session(g, cfg, opts)
+    twin.partition(record_history=False)
+    want = twin.adapt(edge_updates=b, record_history=False)
+    np.testing.assert_array_equal(tk.result.labels, want.labels)
+    assert tk.result.iterations == want.iterations

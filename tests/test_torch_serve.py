@@ -513,17 +513,21 @@ class TestScheduler:
         with pytest.raises(KeyError):
             sched.submit("a", "adapt")
 
-    def test_no_card_raises_unless_cpu(self, monkeypatch):
+    def test_no_card_raises_unless_cpu(self, monkeypatch, tmp_path):
         """No fallback that hides the device: without a card a tenant that
-        did not ask for the CPU is refused; a deployment is F2's."""
+        did not ask for the CPU is refused, under a deployment too."""
+        from repro_torch.cluster import ClusterDeployment
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         sched = PartitionScheduler()
         cfg = SpinnerConfig(k=4, max_iters=60, seed=0)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             sched.add_tenant("a", _graph(300, seed=1), cfg)
         sched.add_tenant("b", _graph(300, seed=1), cfg, TORCH)
-        with pytest.raises(NotImplementedError, match="F2"):
-            PartitionScheduler(deployment=object())
+        deployed = PartitionScheduler(
+            deployment=ClusterDeployment(str(tmp_path)))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            deployed.add_tenant("a", _graph(300, seed=1), cfg)
+        deployed.add_tenant("b", _graph(300, seed=1), cfg, TORCH)
         assert default_batch_min() in (2, 10 ** 9)
 
 

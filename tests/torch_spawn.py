@@ -32,6 +32,22 @@ def run_world(tmp: Path, world: int, worker, reference: str, ref_args,
         [sys.executable, "-c", reference, str(world), data, *ref_args],
         env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True)
+    out = {}
+    try:
+        port = run_ranks(tmp, world, worker, timeout, wait=lambda: out.update(
+            err=ref.communicate(timeout=timeout)[1]))
+    finally:
+        ref.kill()
+    assert ref.returncode == 0, out["err"][-3000:]
+    return data, port
+
+
+def run_ranks(tmp: Path, world: int, worker, timeout: float,
+              wait=None) -> str:
+    """Run ``worker(rank, world, store, out_pattern)`` on every rank (the
+    port's side alone); ``wait()``, if given, runs while the ranks do.
+    Returns the ranks' (``% rank``) output pattern; fails the test if a
+    rank fails or outlives ``timeout``."""
     port = str(tmp / "port-%d.npz")
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=worker,
@@ -40,16 +56,15 @@ def run_world(tmp: Path, world: int, worker, reference: str, ref_args,
     for p in procs:
         p.start()
     try:
-        _, err = ref.communicate(timeout=timeout)
+        if wait is not None:
+            wait()
     finally:
-        ref.kill()
         for p in procs:
             p.join(timeout)
         alive = [p for p in procs if p.is_alive()]
         for p in alive:
             p.kill()
             p.join()
-    assert ref.returncode == 0, err[-3000:]
     assert not alive and all(p.exitcode == 0 for p in procs), \
         [p.exitcode for p in procs]
-    return data, port
+    return port
