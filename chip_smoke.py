@@ -48,8 +48,10 @@ about 128 M directed CSR entries, k = 32):
       rows the no-op proposal), timed beside the base form with its byte
       bound at that active fraction, and one frontier iteration split into
       draws / kernel / expansion / epilogue; (g2) ``open_session(graph,
-      SpinnerConfig(k=32))`` running ``partition()``, ``adapt(edge_updates=
-      B1, frontier=True)`` (64,000 pairs, 0.1% of the edges) and
+      SpinnerConfig(k=32, max_iters=100))`` (the frontier adapt runs to
+      ``max_iters``; cut from 300 for the time limit) running
+      ``partition()``, ``adapt(edge_updates=B1, frontier=True)`` (64,000
+      pairs, 0.1% of the edges) and
       ``adapt(edge_updates=B2)`` (640,000 pairs), once on the CUDA backend
       and once on the torch scatter oracle: identical results, two fast
       adapts, no host rebuild, the variant launched once per frontier
@@ -87,7 +89,8 @@ about 128 M directed CSR entries, k = 32):
   (j) continuous partitioning on a mesh (no kernel: the sharded frontier
       runner and the sharded delta merge run on the torch scatter
       backend): (j1) ``open_session`` of the full graph on a one-rank NCCL
-      mesh (torch backend, overlap off, the allgather plan) running
+      mesh (torch backend, overlap off, the allgather plan, max_iters 100 as
+      (g2)) running
       ``partition()``, ``adapt(edge_updates=B1, frontier=True)`` and
       ``adapt(edge_updates=B2)`` -- both adapts on the fast path with no
       host rebuild, uploads of 12 bytes an entry, each call's wall time,
@@ -134,6 +137,26 @@ about 128 M directed CSR entries, k = 32):
       the CUDA backend under ``PartitionScheduler(deployment=
       ClusterDeployment(...))``, one poisoned dispatch recovered and
       retried, every ticket identical to its twin session's;
+  (m) the LLM scaffolding (``repro_torch.{configs,models,optim,data,
+      train}``, no kernel of its own): (m1) ``python -m
+      repro_torch.launch.serve_llm`` serving stablelm-1.6b at full width and
+      depth (8 prompts of 1024 tokens, 64 generated), its first 4 decode
+      steps held to one forward over the same tokens (atol 0.1, rtol
+      0.05), with prefill seconds, decode ms/step, tokens/s, peak memory
+      and the decode step's byte bound; (m2) ``python -m
+      repro_torch.launch.train``, 4 full-width steps of 4 x 4096 tokens
+      (remat on): finite losses and grad norms, ms/step and tokens/s
+      beside the bf16 FLOP bound, peak memory, the final checkpoint's size
+      and save seconds (deleted after); (m3) qwen3-moe-235b-a22b at full
+      width cut to 2 layers: a prefill of 4 x 512, 16 decode steps, one
+      loss_fn forward + backward, the "sort" and "cumsum" dispatches'
+      losses within rel 2e-2; (m4) the card against the port's CPU at
+      reduced() stablelm-1.6b and qwen3-moe (losses rtol 1e-3, logits atol
+      5e-2), the flash attention's grads, and a 2 + 2-step training run
+      restored from its checkpoint bit-identical to 4 uninterrupted steps;
+      (m5) one full-width train step split into forward / backward / AdamW
+      and one decode step, each profiled (device busy time, idle share,
+      kernels by kind);
   (e) each kernel's achieved bytes/s (the bytes its bound counts over its
       measured time) beside its bound, then one JSON line describing each
       kernel.
@@ -159,6 +182,10 @@ FULL_N, MEDIUM_N, DEG, BETA, K = 4_000_000, 200_000, 16, 0.3, 32
 SPLIT_ITERS = 8                    # depth of the score-matrix path run
 PAGERANK_ITERS = 20
 B1_PAIRS, B2_PAIRS = 64_000, 640_000   # 0.1% and 1% of the full graph's edges
+# (g2) / (j1) depth: the full graph's frontier adapt never drains (a Spinner
+# halt is a score stall, not a fixed point), so it runs to max_iters; cut
+# from the default 300 to keep the smoke inside its time limit
+SESSION_ITERS = 100
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/spinner_scores.cu"
 PREGEL_SOURCE = "src/repro_torch/kernels/csrc/pregel_combine.cu"
 PREGEL_TPU = "src/repro/kernels/pregel_combine.py"
@@ -1002,8 +1029,9 @@ def phase_session(graph, dev, report: dict) -> None:
     b2 = edge_batch(v, B2_PAIRS, seed=1)
     runs = {}
     for backend in ("cuda", "torch"):
-        s = open_session(graph, SpinnerConfig(k=K), EngineOptions(
-            engine="fused", device=dev, score_backend=backend))
+        s = open_session(graph, SpinnerConfig(k=K, max_iters=SESSION_ITERS),
+                         EngineOptions(engine="fused", device=dev,
+                                       score_backend=backend))
         calls = {}
         for name, call in (
                 ("partition", lambda: s.partition()),
@@ -1655,7 +1683,7 @@ def phase_mesh_session(graph, dev, smi: str, report: dict) -> None:
     v, e = graph.num_vertices, graph.num_directed_entries
     b1 = edge_batch(v, B1_PAIRS, seed=0)
     b2 = edge_batch(v, B2_PAIRS, seed=1)
-    cfg = SpinnerConfig(k=K)
+    cfg = SpinnerConfig(k=K, max_iters=SESSION_ITERS)
     opts = EngineOptions(mesh=make_partition_mesh(1, device=dev), device=dev,
                          score_backend="torch", overlap="off")
     s = open_session(graph, cfg, opts)
@@ -2525,6 +2553,475 @@ def phase_cluster_deployment(graphs, dev, smi: str, report: dict) -> None:
         k1_launches=k1_launches, iterations=iters, card=smi)
 
 
+# ---------------------------------------------------------------------------
+# (m) the LLM scaffolding: serve and train stablelm-1.6b at full width
+
+LLM_ARCH, MOE_ARCH = "stablelm-1.6b", "qwen3-moe-235b-a22b"
+BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 (NVIDIA data sheet)
+SERVE_ARGS = ["--arch", LLM_ARCH, "--no-reduced", "--batch", "8",
+              "--prompt-len", "1024", "--gen", "64", "--check", "4"]
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 4, 4096, 4   # train_4k, batch cut
+TRAIN_ARGS = ["--arch", LLM_ARCH, "--steps", str(TRAIN_STEPS), "--seq-len",
+              str(TRAIN_SEQ), "--global-batch", str(TRAIN_BATCH),
+              "--ckpt-every", "1000"]
+MOE_LAYERS, MOE_BATCH, MOE_PROMPT, MOE_GEN = 2, 4, 512, 16
+CKPT_ROOM = 21e9                   # (m2)'s checkpoint: 19.7 GB + slack
+
+
+def _run_child(tag: str, module: str, args: list, timeout: float) -> dict:
+    """``python -m <module> <args>`` from the checkout; echoes its output
+    under ``tag`` and returns the JSON record its last line holds.  A child
+    that exits non-zero ends the smoke."""
+    import os
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", module, *args], cwd=root,
+                         env=env, capture_output=True, text=True,
+                         timeout=timeout)
+    lines = out.stdout.strip().splitlines()
+    for ln in lines[:-1]:
+        print(f"{tag}   | {ln}", flush=True)
+    if out.returncode != 0:
+        print(out.stderr[-4000:], file=sys.stderr)
+    check(out.returncode == 0, f"{tag} {module} exited {out.returncode}")
+    rec = json.loads(lines[-1])
+    rec = next(iter(rec.values()))
+    rec["child_wall_s"] = time.perf_counter() - t0
+    return rec
+
+
+def _decode_bytes(cfg, num_params: int, batch: int, pos: float) -> float:
+    """Bytes one decode step must move: the bf16 weights once (the embedding
+    only its ``batch`` rows), the KV cache up to ``pos`` read and one
+    position written, the bf16 logits written."""
+    embed = cfg.vocab_padded * cfg.d_model
+    kv = cfg.n_layers * batch * cfg.n_kv_heads * cfg.hd * 2 * 2   # k, v bf16
+    return ((num_params - embed) * 2 + batch * cfg.d_model * 2
+            + kv * (pos + 1) + kv + batch * cfg.vocab_padded * 2)
+
+
+def phase_llm_serve(smi: str, report: dict) -> None:
+    """(m1) ``repro_torch.launch.serve_llm`` serving stablelm-1.6b at full
+    width and depth: 8 prompts of 1024 tokens, 64 generated each, the first
+    4 decode steps held to one forward (decode-matches-prefill)."""
+    from repro_torch.configs import ARCHS
+    rec = _run_child("(m1)", "repro_torch.launch.serve_llm", SERVE_ARGS, 600)
+    cfg = ARCHS[rec["arch"]].reduced() if rec["reduced"] else \
+        ARCHS[rec["arch"]]
+    mean_pos = rec["prompt_len"] + (rec["gen"] - 2) / 2
+    nbytes = _decode_bytes(cfg, rec["params"], rec["batch"], mean_pos)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    rec.update(decode_bytes=nbytes, decode_bound_ms=bound_ms)
+    print(f"(m1) serve_llm {LLM_ARCH} full width ({rec['params']} params, "
+          f"bf16 serving copy) [{smi}]: prefill {rec['batch']}x"
+          f"{rec['prompt_len']} {rec['prefill_s']:.4f}s, decode "
+          f"{rec['decode_ms_per_step']:.3f} ms/step = "
+          f"{rec['decode_tokens_per_s']:.1f} tokens/s over {rec['gen'] - 1} "
+          f"steps, peak {rec['peak_bytes'] / 2**30:.2f} GiB; decode byte "
+          f"bound {bound_ms:.3f} ms ({nbytes / 1e9:.3f} GB at the mean "
+          f"position {mean_pos:.0f}; {bound_ms / rec['decode_ms_per_step']:.3f}"
+          f" of it); decode-matches-prefill over "
+          f"{rec['check']['positions']} positions, max |diff| "
+          f"{rec['check']['max_abs_diff']:.4f} (atol 0.1, rtol 0.05); child "
+          f"{rec['child_wall_s']:.1f}s", flush=True)
+    report["llm_serve"] = rec
+
+
+def _train_flops(cfg, num_params: int, tokens: int) -> float:
+    """6 N T for the step's forward and backward, plus the layers'
+    rematerialized forward (2 N_layers T); attention's S^2 products are
+    left out."""
+    from repro_torch.models import dense
+    from repro_torch.models.common import count_params
+    n_layers = count_params(dense.layer_param_specs(cfg, cfg.n_layers))
+    return 6 * num_params * tokens + 2 * n_layers * tokens
+
+
+def phase_llm_train(smi: str, report: dict) -> None:
+    """(m2) ``repro_torch.launch.train``: stablelm-1.6b at full width and
+    depth, 4 steps of 4 x 4096 tokens (train_4k's length, its batch of 256
+    cut to 4), remat on; finite loss and grad norm; the supervisor's final
+    checkpoint (params + m + v) timed, sized and deleted."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import ARCHS
+    need = CKPT_ROOM
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    dirs = [str(root), tempfile.gettempdir()]
+    free = {d: shutil.disk_usage(d).free for d in dirs}
+    base = next((d for d in dirs if free[d] >= need), None)
+    check(base is not None, f"(m2) no room for the {need / 1e9:.0f} GB "
+          f"checkpoint: free bytes {free}")
+    ckpt = os.path.join(base, "llm_train_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        rec = _run_child("(m2)", "repro_torch.launch.train",
+                         TRAIN_ARGS + ["--ckpt-dir", ckpt], 900)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    check(len(rec["loss"]) == TRAIN_STEPS and all(
+        np.isfinite(rec["loss"])) and all(np.isfinite(rec["grad_norm"])),
+        f"(m2) non-finite loss or grad norm: {rec['loss']} "
+        f"{rec['grad_norm']}")
+    cfg = ARCHS[rec["arch"]].reduced() if rec["reduced"] else \
+        ARCHS[rec["arch"]]
+    flops = _train_flops(cfg, rec["params"], rec["tokens_per_step"])
+    bound_ms = flops / BF16_FLOPS_PER_S * 1e3
+    save_s = rec["saves"][-1][1]
+    rec.update(flops=flops, bound_ms=bound_ms, ckpt_free_bytes=free[base])
+    print(f"(m2) train {rec['arch']} full width [{smi}]: {TRAIN_STEPS} "
+          f"steps of {TRAIN_BATCH}x{TRAIN_SEQ} tokens, step times "
+          f"{[round(s * 1e3, 1) for s in rec['step_s']]} ms, "
+          f"{rec['ms_per_step']:.1f} ms/step (median after the first) = "
+          f"{rec['tokens_per_s']:.0f} tokens/s; losses "
+          f"{[round(x, 4) for x in rec['loss']]}, grad norms "
+          f"{[round(x, 3) for x in rec['grad_norm']]}; peak "
+          f"{rec['peak_bytes'] / 2**30:.2f} GiB; bf16 FLOP bound "
+          f"{bound_ms:.1f} ms ({flops:.4e} FLOP; "
+          f"{bound_ms / rec['ms_per_step']:.3f} of it); checkpoint "
+          f"{rec['ckpt_bytes'] / 1e9:.3f} GB saved in {save_s:.2f}s "
+          f"({rec['ckpt_bytes'] / save_s / 1e9:.2f} GB/s) under {base} "
+          f"({free[base] / 1e9:.1f} GB free before), deleted; child "
+          f"{rec['child_wall_s']:.1f}s", flush=True)
+    report["llm_train"] = rec
+
+
+def phase_llm_moe(dev, smi: str, report: dict) -> None:
+    """(m3) qwen3-moe-235b-a22b at full width (E 128, top-8, d_expert
+    1536), depth cut to 2 layers: a prefill of 4 x 512, 16 decode steps,
+    and one ``loss_fn`` forward + backward (no optimizer step); the
+    ``"sort"`` dispatch's loss equal to the ``"cumsum"`` one's within rel
+    2e-2."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import pipeline
+    from repro_torch.launch.serve_llm import grow_cache
+    from repro_torch.models import build, init_params
+    from repro_torch.models.common import (tree_leaves,
+                                           use_reference_numerics)
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.train.steps import value_and_grad
+
+    use_reference_numerics()
+    cfg = dataclasses.replace(ARCHS[MOE_ARCH], n_layers=MOE_LAYERS)
+    api = build(cfg)
+    torch.cuda.synchronize(dev)          # the context exists before a reset
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_params(api, torch.Generator(device=dev).manual_seed(0))
+    data = pipeline.DataConfig(vocab=cfg.vocab, seq_len=MOE_PROMPT,
+                               global_batch=MOE_BATCH, seed=3)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in pipeline.batch_at(data, 0).items()}
+    times = []
+    for _ in range(2):      # the first call also loads the device's kernels
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, cache = api.prefill(params, {"tokens": batch["tokens"]})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    prefill_s = times[1]
+    cache = grow_cache(cache, MOE_PROMPT + MOE_GEN)
+    tok = torch.argmax(logits[:, -1], dim=-1)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for i in range(MOE_GEN):
+            logits, cache = api.decode(params, {"token": tok,
+                                                "pos": MOE_PROMPT + i}, cache)
+            tok = torch.argmax(logits[:, -1], dim=-1)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) / MOE_GEN * 1e3
+    check(bool(torch.isfinite(logits.float()).all()), "(m3) decode logits "
+          "not finite")
+    del cache, logits
+    t0 = time.perf_counter()
+    loss, grads = value_and_grad(api.loss, params, batch)
+    gnorm = float(global_norm(grads))
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    n_grads = len(tree_leaves(grads))
+    del grads
+    torch.cuda.empty_cache()
+    sorted_api = build(dataclasses.replace(cfg, moe_dispatch="sort"))
+    with torch.no_grad():
+        loss_sort = float(sorted_api.loss(params, batch))
+    loss = float(loss)
+    rel = abs(loss_sort - loss) / abs(loss)
+    check(np.isfinite(loss) and np.isfinite(gnorm) and rel <= 2e-2,
+          f"(m3) loss {loss} (cumsum) vs {loss_sort} (sort), grad norm "
+          f"{gnorm}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"(m3) {MOE_ARCH} full width, {MOE_LAYERS} layers "
+          f"({api.num_params} params, {api.num_active_params} active) "
+          f"[{smi}]: prefill {MOE_BATCH}x{MOE_PROMPT} {prefill_s:.4f}s "
+          f"(first call {times[0]:.4f}s), "
+          f"decode {decode_ms:.3f} ms/step over {MOE_GEN} steps; loss_fn "
+          f"forward + backward {step_s:.3f}s, loss {loss:.6f} (cumsum), "
+          f"{loss_sort:.6f} (sort; rel {rel:.2e}), grad norm {gnorm:.4f} "
+          f"over {n_grads} leaves; peak {peak / 2**30:.2f} GiB", flush=True)
+    report["llm_moe"] = dict(params=api.num_params, prefill_s=prefill_s,
+                             prefill_first_s=times[0],
+                             decode_ms=decode_ms, step_s=step_s, loss=loss,
+                             loss_sort=loss_sort, grad_norm=gnorm,
+                             peak_bytes=peak)
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_llm_parity(dev, smi: str, report: dict) -> None:
+    """(m4) The card against the port's CPU at reduced() stablelm-1.6b and
+    qwen3-moe with the same weights: loss (rtol 1e-3), prefill and decode
+    logits (atol 5e-2); the flash autograd.Function's grads (atol 5e-2,
+    rtol 2e-2); and a training run stopped after 2 of 4 steps and
+    restored from its checkpoint bit-identical to the uninterrupted one."""
+    import tempfile
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import pipeline
+    from repro_torch.models import build, init_params
+    from repro_torch.models.attention import chunked_attention
+    from repro_torch.models.common import (tree_leaves, tree_map,
+                                           use_reference_numerics)
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import SupervisorConfig, TrainSupervisor
+    from repro_torch.train import steps
+
+    use_reference_numerics()
+    cpu = torch.device("cpu")
+    worst = {}
+    for arch in (LLM_ARCH, MOE_ARCH):
+        cfg = ARCHS[arch].reduced()
+        api = build(cfg)
+        params = init_params(api, torch.Generator().manual_seed(0))
+        data = pipeline.DataConfig(vocab=cfg.vocab, seq_len=64,
+                                   global_batch=4, seed=4)
+        host = {k: torch.from_numpy(v)
+                for k, v in pipeline.batch_at(data, 0).items()}
+        outs = []
+        for d in (cpu, dev):
+            p = tree_map(lambda t: t.to(d), params)
+            b = {k: v.to(d) for k, v in host.items()}
+            with torch.no_grad():
+                loss = float(api.loss(p, b))
+                logits, cache = api.prefill(p, {"tokens": b["tokens"][:, :48]})
+                cache = tree_map(lambda c: torch.nn.functional.pad(
+                    c, (0, 0, 0, 0, 0, 4)), cache)
+                dec = []
+                for t in range(48, 52):
+                    lg, cache = api.decode(p, {"token": b["tokens"][:, t],
+                                               "pos": t}, cache)
+                    dec.append(lg.float().cpu())
+            outs.append((loss, logits.float().cpu(), torch.stack(dec)))
+        (lc, pc, dc), (lg, pg, dg) = outs
+        err = max(float((pg - pc).abs().max()), float((dg - dc).abs().max()))
+        check(abs(lg - lc) <= 1e-3 * abs(lc) and err <= 5e-2,
+              f"(m4) {arch}: card loss {lg} vs CPU {lc}, logits max |diff| "
+              f"{err}")
+        worst[arch] = dict(loss_card=lg, loss_cpu=lc, logits_max_abs=err)
+
+    gen = torch.Generator().manual_seed(2)
+    q = torch.randn(2, 256, 8, 64, generator=gen)
+    k, v = (torch.randn(2, 256, 2, 64, generator=gen) for _ in range(2))
+    co = torch.randn(2, 256, 8, 64, generator=gen)
+    flash = []
+    for d in (cpu, dev):
+        ts = [t.to(d).requires_grad_(True) for t in (q, k, v)]
+        out = chunked_attention(*ts, causal=True, chunk_q=64, chunk_kv=64)
+        flash.append([out.detach().float().cpu()] + [
+            g.cpu() for g in torch.autograd.grad(
+                (out.float() * co.to(d)).sum(), ts)])
+    flash_err = 0.0
+    for a, b in zip(flash[1], flash[0]):
+        excess = float(((a - b).abs() - 5e-2 - 2e-2 * b.abs()).max())
+        flash_err = max(flash_err, float((a - b).abs().max()))
+        check(excess <= 0, f"(m4) flash grads on the card differ from the "
+              f"CPU's by {flash_err}")
+
+    cfg = ARCHS[LLM_ARCH].reduced()
+    api = build(cfg)
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=100)
+    data = pipeline.DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=8,
+                               seed=5)
+    step = steps.make_train_step(api, opt)
+
+    def batch_fn(i):
+        return {k: torch.from_numpy(v).to(dev)
+                for k, v in pipeline.batch_at(data, i).items()}
+
+    def fresh():
+        return steps.init_train_state(init_params(
+            api, torch.Generator().manual_seed(0), dev))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        whole = TrainSupervisor(SupervisorConfig(f"{tmp}/a", 100),
+                                fresh()).run(step, batch_fn, 4)
+        first = TrainSupervisor(SupervisorConfig(f"{tmp}/b", 2), fresh())
+        try:
+            first.run(step, batch_fn, 4, crash_at=2)
+        except RuntimeError:
+            pass
+        second = TrainSupervisor(SupervisorConfig(f"{tmp}/b", 2), fresh())
+        check(second.start_step == 2, "(m4) no checkpoint at step 2")
+        resumed = second.run(step, batch_fn, 4)
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(whole),
+                                                 tree_leaves(resumed)))
+    check(same, "(m4) the restarted run is not bit-identical to the "
+          "uninterrupted one")
+    print(f"(m4) the card against the CPU [{smi}]: "
+          + "; ".join(f"{a} loss {w['loss_card']:.6f} vs {w['loss_cpu']:.6f},"
+                      f" prefill + 4 decode logits max |diff| "
+                      f"{w['logits_max_abs']:.4f}" for a, w in worst.items())
+          + f"; flash out + grads max |diff| {flash_err:.4f} (atol 5e-2, "
+          f"rtol 2e-2); 2 + 2 steps restored from the step-2 checkpoint "
+          f"bit-identical to 4 uninterrupted steps", flush=True)
+    report["llm_parity"] = dict(models=worst, flash_max_abs=flash_err,
+                                restart_bit_identical=same)
+
+
+def _kernel_split(fn, dev) -> dict:
+    """``fn`` once under ``torch.profiler``: the device's busy time (the sum
+    of its kernels' times), the kernels grouped by kind, the top five by
+    name.  Times in ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize(dev)
+    kinds = {"gemm": 0.0, "elementwise": 0.0, "reduce": 0.0, "copy": 0.0,
+             "other": 0.0}
+    by_name = []
+    for e in prof.key_averages():
+        ms = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0)) / 1e3
+        if ms <= 0 or e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.key.lower()
+        kind = ("gemm" if any(w in name for w in ("gemm", "cutlass", "sm90",
+                                                   "xmma", "cublas", "nvjet"))
+                else "reduce" if "reduce" in name
+                else "copy" if any(w in name for w in ("copy", "cat",
+                                                       "memcpy", "memset"))
+                else "elementwise" if "elementwise" in name
+                else "other")
+        kinds[kind] += ms
+        by_name.append((ms, e.key[:70], e.count))
+    by_name.sort(reverse=True)
+    return dict(busy_ms=sum(kinds.values()), kinds=kinds, top=by_name[:5])
+
+
+def _print_split(tag: str, wall_ms: float, split: dict, smi: str) -> None:
+    busy = split["busy_ms"]
+    print(f"{tag} [{smi}]: {wall_ms:.3f} ms wall, device busy {busy:.3f} ms "
+          f"(idle share {max(0.0, 1 - busy / wall_ms):.3f}); by kind "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split["kinds"].items())
+          + "; top kernels " + "; ".join(
+              f"{n} x{c} {ms:.3f}" for ms, n, c in split["top"]),
+          flush=True)
+
+
+def phase_llm_split(dev, smi: str, report: dict) -> None:
+    """(m5) Where a full-width stablelm-1.6b train step and decode step
+    spend their time: the train step (4 x 4096 tokens) timed as forward,
+    backward and AdamW update, then profiled; a decode step (batch 8 at
+    position 1056 of a 1088-position cache, the bf16 serving copy) timed
+    and profiled.  The idle share is 1 - device busy / unprofiled wall."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import pipeline
+    from repro_torch.launch.serve_llm import serving_params
+    from repro_torch.models import build, common, init_params
+    from repro_torch.models.common import tree_leaves, tree_unflatten
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps
+
+    common.use_reference_numerics()
+    cfg = ARCHS[LLM_ARCH]
+    api = build(cfg)
+    route = ("bf16 mm/bmm with out_dtype=float32" if common._out_dtype_mm(
+        dev.type) else "float32 products of the bf16-rounded operands")
+    state = steps.init_train_state(init_params(
+        api, torch.Generator(device=dev).manual_seed(0)))
+    opt = adamw.AdamWConfig(warmup_steps=1, total_steps=10)
+    data = pipeline.DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                               global_batch=TRAIN_BATCH)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in pipeline.batch_at(data, 0).items()}
+    step = steps.make_train_step(api, opt)
+    state, _ = step(state, batch)                       # warm
+    parts = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        parts[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    leaves = [p.detach().requires_grad_(True)
+              for p in tree_leaves(state.params)]
+    with torch.enable_grad():
+        loss = timed("forward", lambda: api.loss(
+            tree_unflatten(state.params, leaves), batch))
+        grads = timed("backward", lambda: torch.autograd.grad(loss, leaves))
+    timed("adamw", lambda: adamw.update(
+        opt, tree_unflatten(state.params, list(grads)), state.opt,
+        state.params))
+    del loss, grads, leaves
+    timed("step", lambda: step(state, batch))
+    split = _kernel_split(lambda: step(state, batch), dev)
+    print(f"(m5) one train step of {LLM_ARCH}, {TRAIN_BATCH}x{TRAIN_SEQ} "
+          f"tokens [{smi}]: forward {parts['forward']:.1f} ms, backward "
+          f"(remat forward included) {parts['backward']:.1f}, AdamW "
+          f"{parts['adamw']:.1f}; float32 score products: {route}",
+          flush=True)
+    _print_split("(m5) train step", parts["step"], split, smi)
+    report["llm_split"] = dict(train=dict(parts, **split), route=route)
+    serve = serving_params(state.params)
+    del state
+    torch.cuda.empty_cache()
+    b, pos, smax = 8, 1056, 1088
+    cache = api.cache_specs(b, smax)
+    cache = type(cache)(*(torch.randn(c.shape, device=dev).to(c.dtype)
+                          for c in cache))
+    tok = torch.zeros(b, dtype=torch.int32, device=dev)
+
+    def decode():
+        with torch.no_grad():
+            return api.decode(serve, {"token": tok, "pos": pos}, cache)
+
+    decode()
+    reps = []
+    for _ in range(5):
+        timed("decode", decode)
+        reps.append(parts["decode"])
+    parts["decode"] = statistics.median(reps)
+    split = _kernel_split(decode, dev)
+    _print_split(f"(m5) one decode step (batch {b}, position {pos})",
+                 parts["decode"], split, smi)
+    report["llm_split"]["decode"] = dict(wall_ms=parts["decode"], **split)
+    del serve, cache
+    torch.cuda.empty_cache()
+
+
+def phase_llm(dev, smi: str, report: dict) -> None:
+    """(m): (m1)-(m5) in order, with the phase's wall time."""
+    t0 = time.perf_counter()
+    phase_llm_serve(smi, report)
+    phase_llm_train(smi, report)
+    phase_llm_moe(dev, smi, report)
+    phase_llm_parity(dev, smi, report)
+    phase_llm_split(dev, smi, report)
+    print(f"(m) phase (m) took {time.perf_counter() - t0:.3f}s [{smi}]",
+          flush=True)
+
+
 def print_rates(kernels: list) -> None:
     """(e) Each kernel's achieved rate, the bytes its bound counts over its
     measured time, beside the bound; adds ``achieved_bytes_per_s`` (and
@@ -2627,7 +3124,9 @@ def main() -> int:
     print(f"(l) phase (l) took {time.perf_counter() - t0:.3f}s [{smi}]",
           flush=True)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-          f" GiB", flush=True)
+          f" GiB (phases (b)-(l))", flush=True)
+    torch.cuda.empty_cache()
+    phase_llm(dev, smi, report)
 
     tpu = "src/repro/kernels/spinner_scores.py"
     replaces = {"fused_update_csr": f"{tpu}:241",

@@ -139,17 +139,26 @@ def restore(directory: str, like: PyTree, step: Optional[int] = None,
 
     Each leaf comes back as a numpy array, or as a torch tensor where the
     matching leaf of ``like`` is one or ``device`` is given; a tensor goes
-    to ``device`` (default: the ``like`` leaf's device)."""
+    to ``device`` (default: the ``like`` leaf's device).  A directory the
+    reference wrote (a msgpack manifest, no ``manifest.json``) restores
+    too: its files are named by the same rule."""
     if step is None:
         step = latest_step(directory)
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {directory}")
     path = os.path.join(directory, f"step_{step:08d}")
-    with open(os.path.join(path, _MANIFEST)) as f:
-        by_key = {e["key"]: e for e in json.load(f)["keys"]}
+    manifest = os.path.join(path, _MANIFEST)
+    if os.path.exists(manifest):
+        with open(manifest) as f:
+            files = {e["key"]: e["file"] for e in json.load(f)["keys"]}
+    else:
+        # a reference checkpoint (msgpack manifest): its files follow the
+        # same naming rule
+        files = {key: key.replace("/", "__") + ".npy"
+                 for key, _ in _leaves(like)}
     leaves = []
     for key, leaf in _leaves(like):
-        arr = np.load(os.path.join(path, by_key[key]["file"]))
+        arr = np.load(os.path.join(path, files[key]))
         want = tuple(leaf.shape) if hasattr(leaf, "shape") else ()
         if tuple(arr.shape) != want:
             raise ValueError(f"checkpoint leaf {key!r} has shape "

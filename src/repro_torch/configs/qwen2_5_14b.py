@@ -1,0 +1,7 @@
+"""qwen2.5-14b [dense] GQA + QKV bias [hf:Qwen/Qwen2.5-0.5B; hf]."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    arch="qwen2.5-14b", family="dense", n_layers=48, d_model=5120,
+    n_heads=40, n_kv_heads=8, d_ff=13824, vocab=152064, qkv_bias=True,
+    rope_theta=1_000_000.0)

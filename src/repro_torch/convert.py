@@ -11,6 +11,13 @@ nothing of the reference package: the caller hands over numpy views.
     key as ``uint32[2]`` (``key`` or ``rng_key``), plus the halting
     aggregates where the source has them.  The port then continues the
     same run: same key stream, same halting state.
+  * ``params_from_reference(tree, device)`` takes a model's parameter
+    pytree as nested host arrays (``jax.device_get(params)``) and gives
+    the port's parameters: the same keys, shapes and dtypes, leaf for leaf
+    (bf16 arrives as ``ml_dtypes.bfloat16`` and leaves as
+    ``torch.bfloat16``).
+  * ``train_state_from_reference(s, device)`` does the same for a whole
+    ``TrainState`` (params, AdamW step / m / v, step).
 """
 from __future__ import annotations
 
@@ -19,6 +26,9 @@ import torch
 
 from .core.engine import SpinnerState, init_state
 from .core.graph import Graph
+from .models.common import tree_map
+from .optim.adamw import AdamWState
+from .train.steps import TrainState
 
 # reference SpinnerState fields carried over when present: name -> dtype
 _CARRIED = {"best_score": torch.float32, "stall": torch.int32,
@@ -54,3 +64,30 @@ def state_from_reference(s, device) -> SpinnerState:
                                   dtype=dtype, device=state.labels.device)
                for name, dtype in _CARRIED.items() if name in fields}
     return state._replace(**carried)
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":          # ml_dtypes: no numpy twin
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def params_from_reference(tree, device):
+    """The port's parameter tree on ``device`` from a reference pytree of
+    host arrays (nested dicts and NamedTuples, keys kept)."""
+    return tree_map(lambda a: _tensor(a, device), tree)
+
+
+def train_state_from_reference(s, device) -> TrainState:
+    """The port's ``TrainState`` on ``device`` continuing reference
+    ``TrainState`` ``s`` (host arrays): the same params, AdamW moments and
+    step counters, so the port's next step is the reference's."""
+    opt = s.opt
+    return TrainState(
+        params=params_from_reference(s.params, device),
+        opt=AdamWState(step=_tensor(opt.step, device).to(torch.int32),
+                       m=params_from_reference(opt.m, device),
+                       v=params_from_reference(opt.v, device)),
+        step=_tensor(s.step, device).to(torch.int32))

@@ -1,0 +1,189 @@
+"""Dense decoder-only LM (llama lineage: granite, stablelm, qwen2.5).
+
+The port of ``repro.models.dense``.  Layers are stacked along a leading
+``L`` axis, as the reference's; its ``lax.scan`` over them is a Python
+loop over the ``L`` slices, each layer checkpointed
+(``torch.utils.checkpoint``, non-reentrant) when ``cfg.remat``.  The
+reference's sharding hints (``constrain``, ``constrain_residual``,
+``maybe_cast_stack``) are identities on one device and are not ported.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from ..configs.base import ModelConfig
+from .attention import KVCache, attention, attn_param_specs
+from .common import (COMPUTE_DTYPE, cast, dense, matmul_f32, rms_norm,
+                     softmax_cross_entropy, spec, swiglu, unstack)
+
+
+def layer_param_specs(cfg: ModelConfig, n_layers: int) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "attn_norm": spec(n_layers, d),
+        "attn": attn_param_specs(d, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                                 cfg.qkv_bias, prefix_shape=(n_layers,)),
+        "mlp_norm": spec(n_layers, d),
+        "w1": spec(n_layers, d, f),
+        "w3": spec(n_layers, d, f),
+        "w2": spec(n_layers, f, d),
+    }
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    return {
+        "embed": spec(cfg.vocab_padded, cfg.d_model),
+        "layers": layer_param_specs(cfg, cfg.n_layers),
+        "final_norm": spec(cfg.d_model),
+        "lm_head": spec(cfg.d_model, cfg.vocab_padded),
+    }
+
+
+def attend(x: torch.Tensor, lp: dict, cfg: ModelConfig, *,
+           causal: bool = True, cache: Optional[KVCache] = None, pos=None,
+           return_cache: bool = False):
+    """The attention half of a layer: pre-norm, attention and residual
+    (shared with the MoE family)."""
+    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    a, new_cache = attention(
+        h, lp["attn"], n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.hd, rope_theta=cfg.rope_theta, causal=causal,
+        chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv,
+        cache=cache, pos=pos, return_cache=return_cache,
+        bf16_wire=cfg.bf16_reduce)
+    return x + a, new_cache
+
+
+def _layer(x: torch.Tensor, lp: dict, cfg: ModelConfig, *,
+           causal: bool = True, cache: Optional[KVCache] = None, pos=None,
+           return_cache: bool = False
+           ) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    x, new_cache = attend(x, lp, cfg, causal=causal, cache=cache, pos=pos,
+                          return_cache=return_cache)
+    h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    x = x + swiglu(h, lp["w1"], lp["w3"], lp["w2"],
+                   bf16_wire=cfg.bf16_reduce)
+    return x, new_cache
+
+
+def run_layers(x: torch.Tensor, layers: dict, cfg: ModelConfig, layer_fn):
+    """``layer_fn(h, lp) -> (h, y)`` over the stacked layers (the
+    reference's ``lax.scan``), each layer checkpointed when ``cfg.remat``
+    and autograd records; returns the last ``h`` and the list of ``y``."""
+    ys = []
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lp in unstack(layers, cfg.n_layers):
+        if remat:
+            x, y = checkpoint(layer_fn, x, lp, use_reentrant=False)
+        else:
+            x, y = layer_fn(x, lp)
+        ys.append(y)
+    return x, ys
+
+
+def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    # F.embedding: its backward on the card sums repeated tokens in a
+    # fixed order (a restart repeats a step's bits)
+    return cast(F.embedding(tokens.long(), params["embed"]))
+
+
+def lm_logits(params: dict, x: torch.Tensor, cfg: ModelConfig
+              ) -> torch.Tensor:
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return dense(x, params["lm_head"])
+
+
+def _ce_chunk(xb: torch.Tensor, lb: torch.Tensor, head: torch.Tensor
+              ) -> torch.Tensor:
+    logits = matmul_f32(xb, head)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, lb.long()[..., None])[..., 0]
+    return torch.sum(lse - ll)
+
+
+def lm_loss(params: dict, x: torch.Tensor, labels: torch.Tensor,
+            cfg: ModelConfig) -> torch.Tensor:
+    """Final-norm + head + CE.
+
+    With ``cfg.ce_chunked`` > 0 the (B, S, V) logits tensor is never
+    materialized: sequence chunks are projected, reduced to (lse,
+    label-logit) sums and recomputed in the backward pass (one checkpoint a
+    chunk, the reference's ``jax.checkpoint`` scan body).
+    """
+    if not cfg.ce_chunked:
+        return softmax_cross_entropy(lm_logits(params, x, cfg), labels)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    b, s, _ = x.shape
+    chunk = math.gcd(cfg.ce_chunked, s)
+    head = cast(params["lm_head"])
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, s, chunk):
+        xb, lb = x[:, i:i + chunk], labels[:, i:i + chunk]
+        if torch.is_grad_enabled():
+            part = checkpoint(_ce_chunk, xb, lb, head, use_reentrant=False)
+        else:
+            part = _ce_chunk(xb, lb, head)
+        total = total + part
+    return total / (b * s)
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig
+            ) -> torch.Tensor:
+    """Full-sequence causal forward -> (B, S, V) logits (train path)."""
+    x = embed(params, tokens)
+    x, _ = run_layers(x, params["layers"], cfg,
+                      lambda h, lp: (_layer(h, lp, cfg)[0], None))
+    return lm_logits(params, x, cfg)
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    x = embed(params, batch["tokens"])
+    x, _ = run_layers(x, params["layers"], cfg,
+                      lambda h, lp: (_layer(h, lp, cfg)[0], None))
+    return lm_loss(params, x, batch["labels"], cfg)
+
+
+def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> KVCache:
+    shape = (cfg.n_layers, batch, seq_len, cfg.n_kv_heads, cfg.hd)
+    return KVCache(spec(*shape, dtype=COMPUTE_DTYPE),
+                   spec(*shape, dtype=COMPUTE_DTYPE))
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
+               device=None) -> KVCache:
+    s = cache_specs(cfg, batch, seq_len)
+    return KVCache(torch.zeros(s.k.shape, dtype=s.k.dtype, device=device),
+                   torch.zeros(s.v.shape, dtype=s.v.dtype, device=device))
+
+
+def stack_caches(caches: list) -> KVCache:
+    """Per-layer caches -> one stacked (L, B, S, KV, hd) cache."""
+    return KVCache(torch.stack([c.k for c in caches]),
+                   torch.stack([c.v for c in caches]))
+
+
+def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig
+            ) -> Tuple[torch.Tensor, KVCache]:
+    """Run the prompt; returns last-position logits + stacked KV caches."""
+    x = embed(params, tokens)
+    x, caches = run_layers(
+        x, params["layers"], cfg,
+        lambda h, lp: _layer(h, lp, cfg, return_cache=True))
+    return lm_logits(params, x[:, -1:, :], cfg), stack_caches(caches)
+
+
+def decode_step(params: dict, token: torch.Tensor, pos, cache: KVCache,
+                cfg: ModelConfig) -> Tuple[torch.Tensor, KVCache]:
+    """One decode step.  token: (B,) int; pos: an int (or a 0-d tensor);
+    cache: stacked (L, B, S_max, KV, hd), written in place at ``pos`` and
+    returned."""
+    x = embed(params, token[:, None])
+    for i, lp in enumerate(unstack(params["layers"], cfg.n_layers)):
+        x, _ = _layer(x, lp, cfg, cache=KVCache(cache.k[i], cache.v[i]),
+                      pos=pos)
+    return lm_logits(params, x, cfg), cache

@@ -40,6 +40,7 @@ class TrainSupervisor:
         self.state = state
         self.step_times = []
         self.flagged_steps = []
+        self.saves = []                  # (step, seconds) of each save
         start = checkpoint.latest_step(cfg.ckpt_dir)
         self.start_step = 0
         if start is not None:
@@ -63,10 +64,15 @@ class TrainSupervisor:
                 self.flagged_steps.append((step, dt, med))
             step += 1
             if step % self.cfg.ckpt_every == 0:
-                checkpoint.save(self.cfg.ckpt_dir, step, self.state)
+                self._save(step)
                 checkpoint.gc_old(self.cfg.ckpt_dir, keep=self.cfg.keep)
-        checkpoint.save(self.cfg.ckpt_dir, step, self.state)
+        self._save(step)
         return self.state
+
+    def _save(self, step: int) -> None:
+        t0 = time.time()
+        checkpoint.save(self.cfg.ckpt_dir, step, self.state)
+        self.saves.append((step, time.time() - t0))
 
     def stats(self) -> dict:
         """Straggler-watchdog report: ``flagged_steps`` is the list of
@@ -79,4 +85,5 @@ class TrainSupervisor:
             "median_step_time": times[len(times) // 2] if times else None,
             "straggler_factor": self.cfg.straggler_factor,
             "flagged_steps": list(self.flagged_steps),
+            "saves": list(self.saves),
         }

@@ -257,8 +257,9 @@ def test_halved_weights_match_reference(halved_runs, backend, fused):
 def test_imports_neither_jax_nor_reference():
     """The port (its application layer, session, mesh, exchange plans,
     sharded layout, distributed PageRank, placement, the cluster runtime
-    and its worker too), its examples and chip_smoke.py load without JAX,
-    ``repro`` or msgpack."""
+    and its worker, the LLM configs, models, optimizer, data, train steps
+    and both LLM launchers too), its examples and chip_smoke.py load
+    without JAX, ``repro`` or msgpack."""
     code = (
         "import sys; sys.path.insert(0, 'src'); sys.path.insert(0, '.')\n"
         "sys.path.insert(0, 'examples')\n"
@@ -272,7 +273,12 @@ def test_imports_neither_jax_nor_reference():
         "import repro_torch.serve, repro_torch.ckpt, repro_torch.runtime\n"
         "import repro_torch.cluster, repro_torch.cluster.worker\n"
         "import torch_quickstart, torch_partition_and_analyze\n"
-        "import torch_elastic_resize\n"
+        "import torch_elastic_resize, torch_train_lm\n"
+        "import repro_torch.configs, repro_torch.configs.spinner_paper\n"
+        "import repro_torch.models, repro_torch.optim.adamw\n"
+        "import repro_torch.optim.compression, repro_torch.data.pipeline\n"
+        "import repro_torch.train, repro_torch.launch.serve_llm\n"
+        "import repro_torch.launch.train\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'repro', 'msgpack')]\n"
         "assert not bad, bad\n")

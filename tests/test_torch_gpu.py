@@ -1082,3 +1082,102 @@ def test_deployment_recovers_on_card(cuda, tmp_path):
     want = twin.adapt(edge_updates=b, record_history=False)
     np.testing.assert_array_equal(tk.result.labels, want.labels)
     assert tk.result.iterations == want.iterations
+
+
+# ---------------------------------------------------------------------------
+# the LLM models on the card against the CPU
+
+def _rel(a, b):
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def test_full_width_stablelm_layer_on_card(cuda):
+    """One stablelm-1.6b layer at full width (d_model 2048, 32 heads,
+    d_ff 5632), forward and backward on the card against the CPU."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import common, dense as dense_mod
+    common.use_reference_numerics()
+    cfg = ARCHS["stablelm-1.6b"]
+    specs = dense_mod.layer_param_specs(cfg, 1)
+    lp = common.tree_map(lambda t: t[0], common.init_from_specs(
+        specs, torch.Generator().manual_seed(0)))
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(1, 512, cfg.d_model, generator=gen).bfloat16()
+    co = torch.randn(1, 512, cfg.d_model, generator=gen)
+
+    def run(dev):
+        def loss(tree):
+            out, _ = dense_mod._layer(tree["x"], tree["lp"], cfg)
+            return (out.float() * co.to(dev)).sum(), out
+        tree = common.tree_map(lambda t: t.to(dev), {"x": x, "lp": lp})
+        leaves = [t.detach().requires_grad_(True)
+                  for t in common.tree_leaves(tree)]
+        tree = common.tree_unflatten(tree, leaves)
+        val, out = loss(tree)
+        grads = torch.autograd.grad(val, leaves)
+        return out.detach(), grads
+
+    out_c, g_c = run(torch.device("cpu"))
+    out_g, g_g = run(cuda)
+    np.testing.assert_allclose(out_g.float().cpu().numpy(),
+                               out_c.float().numpy(), atol=5e-2, rtol=2e-2)
+    for a, b in zip(g_g, g_c):
+        assert _rel(a, b) < 2e-2
+
+
+def test_flash_attention_on_card(cuda):
+    """The flash autograd.Function on the card against the CPU: forward
+    and grads, causal GQA with several blocks a side."""
+    from repro_torch.models.attention import chunked_attention
+    gen = torch.Generator().manual_seed(2)
+    q = torch.randn(2, 256, 8, 64, generator=gen)
+    k, v = (torch.randn(2, 256, 2, 64, generator=gen) for _ in range(2))
+    co = torch.randn(2, 256, 8, 64, generator=gen)
+
+    def run(dev):
+        ts = [t.to(dev).requires_grad_(True) for t in (q, k, v)]
+        out = chunked_attention(*ts, causal=True, chunk_q=64, chunk_kv=64)
+        grads = torch.autograd.grad((out.float() * co.to(dev)).sum(), ts)
+        return out.detach().float().cpu(), [g.cpu() for g in grads]
+
+    out_c, g_c = run(torch.device("cpu"))
+    out_g, g_g = run(cuda)
+    np.testing.assert_allclose(out_g.numpy(), out_c.numpy(), atol=1e-2,
+                               rtol=1e-2)
+    for a, b in zip(g_g, g_c):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=5e-2,
+                                   rtol=2e-2)
+
+
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "qwen3-moe-235b-a22b"])
+def test_reduced_train_steps_on_card(cuda, arch):
+    """Three train steps of a reduced model on the card from the CPU run's
+    weights: the same losses (rtol 1e-3) and grad norms (rtol 2e-2)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import pipeline
+    from repro_torch.models import build, common, init_params
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps as train_steps
+    common.use_reference_numerics()
+    cfg = ARCHS[arch].reduced()
+    api = build(cfg)
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=100)
+    data = pipeline.DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4)
+    params = init_params(api, torch.Generator().manual_seed(0))
+
+    def run(dev):
+        state = train_steps.init_train_state(
+            common.tree_map(lambda t: t.to(dev, copy=True), params))
+        step = train_steps.make_train_step(api, opt)
+        out = []
+        for i in range(3):
+            b = {k: torch.from_numpy(v).to(dev)
+                 for k, v in pipeline.batch_at(data, i).items()}
+            state, st = step(state, b)
+            out.append((float(st["loss"]), float(st["grad_norm"])))
+        return out
+
+    for (lg, gg), (lc, gc) in zip(run(cuda), run(torch.device("cpu"))):
+        assert lg == pytest.approx(lc, rel=1e-3)
+        assert gg == pytest.approx(gc, rel=2e-2)
