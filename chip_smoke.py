@@ -48,7 +48,7 @@ about 128 M directed CSR entries, k = 32):
       rows the no-op proposal), timed beside the base form with its byte
       bound at that active fraction, and one frontier iteration split into
       draws / kernel / expansion / epilogue; (g2) ``open_session(graph,
-      SpinnerConfig(k=32, max_iters=100))`` (the frontier adapt runs to
+      SpinnerConfig(k=32, max_iters=60))`` (the frontier adapt runs to
       ``max_iters``; cut from 300 for the time limit) running
       ``partition()``, ``adapt(edge_updates=B1, frontier=True)`` (64,000
       pairs, 0.1% of the edges) and
@@ -89,7 +89,7 @@ about 128 M directed CSR entries, k = 32):
   (j) continuous partitioning on a mesh (no kernel: the sharded frontier
       runner and the sharded delta merge run on the torch scatter
       backend): (j1) ``open_session`` of the full graph on a one-rank NCCL
-      mesh (torch backend, overlap off, the allgather plan, max_iters 100 as
+      mesh (torch backend, overlap off, the allgather plan, max_iters 60 as
       (g2)) running
       ``partition()``, ``adapt(edge_updates=B1, frontier=True)`` and
       ``adapt(edge_updates=B2)`` -- both adapts on the fast path with no
@@ -157,6 +157,28 @@ about 128 M directed CSR entries, k = 32):
       (m5) one full-width train step split into forward / backward / AdamW
       and one decode step, each profiled (device busy time, idle share,
       kernels by kind);
+  (n) the rwkv, hybrid, encdec and vlm families (no kernel of their own:
+      their chunk scans are torch operations, as the reference's are jnp):
+      (n1) ``serve_llm`` serving rwkv6-1.6b, zamba2-7b,
+      seamless-m4t-large-v2 and llama-3.2-vision-11b at full width and
+      depth, one child process each (8 prompts of 1024 tokens, 32
+      generated, the first 16 decode steps held to one forward), with
+      each family's decode byte bound; (n2) ``python -m
+      repro_torch.launch.train`` on seamless-m4t-large-v2 (the
+      ``src_embed`` frontend stub), 3 full-width steps of 4 x 1024 tokens,
+      its 24.4 GB checkpoint saved, sized and deleted; (n3) one
+      ``loss_fn`` forward + backward at full width on 2 x 2048 tokens:
+      rwkv6-1.6b at full depth, zamba2-7b cut to 15 layers and
+      llama-3.2-vision-11b cut to 10 (float32 params and grads), each
+      beside its bf16 FLOP bound; (n4) the four reduced configs on the
+      card against the port's CPU (loss rtol 1e-3; prefill, 4 decode
+      steps and the final state or cache atol 5e-2); (n5) a full-width
+      rwkv6-1.6b forward + backward (2 layers) and a zamba2-7b decode step
+      profiled (device busy time by kind, idle share); (n1b) zamba2-7b's
+      decode held to its forward block by block at full width and depth
+      (each Mamba2 block and shared-block application on the forward's
+      own input): its logits cannot be, bf16 rounding differences grow
+      ~1.2-1.5x a Mamba2 block at this init, the reference's too;
   (e) each kernel's achieved bytes/s (the bytes its bound counts over its
       measured time) beside its bound, then one JSON line describing each
       kernel.
@@ -184,8 +206,9 @@ PAGERANK_ITERS = 20
 B1_PAIRS, B2_PAIRS = 64_000, 640_000   # 0.1% and 1% of the full graph's edges
 # (g2) / (j1) depth: the full graph's frontier adapt never drains (a Spinner
 # halt is a score stall, not a fixed point), so it runs to max_iters; cut
-# from the default 300 to keep the smoke inside its time limit
-SESSION_ITERS = 100
+# from the default 300 to keep the smoke, phase (n) included, inside its
+# time limit
+SESSION_ITERS = 60
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/spinner_scores.cu"
 PREGEL_SOURCE = "src/repro_torch/kernels/csrc/pregel_combine.cu"
 PREGEL_TPU = "src/repro/kernels/pregel_combine.py"
@@ -1657,7 +1680,7 @@ def phase_apps_mesh_medium(g, labels: np.ndarray, dev) -> None:
               f"HaloPlan.true_halo {host}", flush=True)
 
 
-MESH_MEDIUM_ITERS = 5      # (j2)'s depth: its CPU side draws ~1.5 s an
+MESH_MEDIUM_ITERS = 2      # (j2)'s depth: its CPU side draws ~1.5 s an
                            # iteration at the medium size
 
 
@@ -2591,14 +2614,51 @@ def _run_child(tag: str, module: str, args: list, timeout: float) -> dict:
     return rec
 
 
-def _decode_bytes(cfg, num_params: int, batch: int, pos: float) -> float:
-    """Bytes one decode step must move: the bf16 weights once (the embedding
-    only its ``batch`` rows), the KV cache up to ``pos`` read and one
-    position written, the bf16 logits written."""
-    embed = cfg.vocab_padded * cfg.d_model
-    kv = cfg.n_layers * batch * cfg.n_kv_heads * cfg.hd * 2 * 2   # k, v bf16
-    return ((num_params - embed) * 2 + batch * cfg.d_model * 2
-            + kv * (pos + 1) + kv + batch * cfg.vocab_padded * 2)
+def _decode_bytes(cfg, batch: int, pos: float, src_len: int = 0) -> float:
+    """Bytes one decode step at position ``pos`` must move: the serving
+    copy's weights once (bf16; the leaves kept float32 at 4 bytes; the
+    embedding only its ``batch`` rows; not the encoder, which decode does
+    not run, nor the cross-attention's K/V projections, whose output the
+    cross cache holds), the cache or state it reads and writes, and the
+    bf16 logits written.  Self-attention caches are read up to ``pos``
+    and written at it; cross caches (``src_len`` or ``n_img_tokens``
+    positions) are read; recurrent states are read and written whole."""
+    import math
+
+    from repro_torch.launch.serve_llm import _F32_LEAVES
+    from repro_torch.models import build
+    from repro_torch.models.common import tree_leaves_with_path
+    api = build(cfg)
+    weights = 0
+    for path, s in tree_leaves_with_path(api.param_specs):
+        if path == "embed":
+            weights += batch * cfg.d_model * 2
+        elif not (path.startswith("enc") or path.endswith(
+                ("cross/wk", "cross/wv", "cross_layers/attn/wk",
+                 "cross_layers/attn/wv"))):
+            weights += math.prod(s.shape) * (
+                4 if any(f in path for f in _F32_LEAVES) else 2)
+    kv_pos = batch * cfg.n_kv_heads * cfg.hd * 2 * 2     # k and v, bf16
+    if cfg.family == "rwkv":
+        state = 2 * sum(math.prod(s.shape) * s.dtype.itemsize
+                        for _, s in tree_leaves_with_path(
+                            api.cache_specs(batch, 1)))
+    elif cfg.family == "hybrid":
+        st = api.cache_specs(batch, 1)
+        state = 2 * sum(math.prod(s.shape) * s.dtype.itemsize
+                        for _, s in tree_leaves_with_path((st.mamba,
+                                                           st.tail)))
+        state += st.attn.k.shape[0] * kv_pos * (pos + 2)
+    elif cfg.family == "encdec":
+        state = cfg.n_layers * kv_pos * (pos + 2 + src_len)
+    elif cfg.family == "vlm":
+        groups = cfg.n_layers // cfg.cross_attn_period
+        state = (cfg.n_layers - groups) * kv_pos * (pos + 2) \
+            + groups * kv_pos * cfg.n_img_tokens
+    else:
+        state = cfg.n_layers * kv_pos * (pos + 2)
+    vocab = cfg.vocab if cfg.family == "vlm" else cfg.vocab_padded
+    return weights + state + batch * vocab * 2
 
 
 def phase_llm_serve(smi: str, report: dict) -> None:
@@ -2610,7 +2670,7 @@ def phase_llm_serve(smi: str, report: dict) -> None:
     cfg = ARCHS[rec["arch"]].reduced() if rec["reduced"] else \
         ARCHS[rec["arch"]]
     mean_pos = rec["prompt_len"] + (rec["gen"] - 2) / 2
-    nbytes = _decode_bytes(cfg, rec["params"], rec["batch"], mean_pos)
+    nbytes = _decode_bytes(cfg, rec["batch"], mean_pos)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     rec.update(decode_bytes=nbytes, decode_bound_ms=bound_ms)
     print(f"(m1) serve_llm {LLM_ARCH} full width ({rec['params']} params, "
@@ -2628,54 +2688,100 @@ def phase_llm_serve(smi: str, report: dict) -> None:
     report["llm_serve"] = rec
 
 
-def _train_flops(cfg, num_params: int, tokens: int) -> float:
-    """6 N T for the step's forward and backward, plus the layers'
-    rematerialized forward (2 N_layers T); attention's S^2 products are
-    left out."""
-    from repro_torch.models import dense
-    from repro_torch.models.common import count_params
-    n_layers = count_params(dense.layer_param_specs(cfg, cfg.n_layers))
-    return 6 * num_params * tokens + 2 * n_layers * tokens
+def _product_terms(cfg, batch: int, seq: int, src_len: int = None):
+    """(forward products, rematerialized products): the sum over the
+    weight matrices of their elements times the tokens they multiply, for
+    one forward over ``batch`` x ``seq`` tokens (an encoder over ``batch``
+    x ``src_len``, an image of ``n_img_tokens``); the second counts only
+    what remat recomputes (the layers; the hybrid's groups, not its tail).
+    Gathers (the embedding), vectors and the attention's and scans' own
+    products are left out."""
+    import math
+
+    from repro_torch.models import build
+    from repro_torch.models.common import tree_leaves_with_path
+    tokens = batch * seq
+    src = batch * (src_len or seq)
+    img = batch * cfg.n_img_tokens
+    # leading stacked axes of each subtree: a leaf with 2 dims past them is
+    # a weight matrix
+    stacked = {"layers": 1, "mamba": 2, "mamba_tail": 1, "enc_layers": 1,
+               "dec_layers": 1, "self_layers": 2, "cross_layers": 1}
+    groups = cfg.n_layers // cfg.attn_period if cfg.attn_period else 0
+    fwd = remat = 0
+    for path, s in tree_leaves_with_path(build(cfg).param_specs):
+        top = path.split("/")[0]
+        if top == "embed" or len(s.shape) - stacked.get(top, 0) < 2 or \
+                path.endswith("bonus_u"):
+            continue
+        n = math.prod(s.shape)
+        if top == "enc_layers" or path.endswith(("cross/wk", "cross/wv")):
+            n *= src
+        elif path.startswith(("cross_layers/attn/wk",
+                              "cross_layers/attn/wv")):
+            n *= img
+        elif top == "shared_attn":
+            n *= tokens * groups
+        elif "/exp_w" in path:
+            n *= tokens * cfg.top_k / cfg.n_experts
+        else:
+            n *= tokens
+        fwd += n
+        if top not in ("lm_head", "mamba_tail"):
+            remat += n
+    return fwd, (remat if cfg.remat else 0)
 
 
-def phase_llm_train(smi: str, report: dict) -> None:
-    """(m2) ``repro_torch.launch.train``: stablelm-1.6b at full width and
-    depth, 4 steps of 4 x 4096 tokens (train_4k's length, its batch of 256
-    cut to 4), remat on; finite loss and grad norm; the supervisor's final
-    checkpoint (params + m + v) timed, sized and deleted."""
+def _train_flops(cfg, batch: int, seq: int, src_len: int = None) -> float:
+    """A forward and backward: 6 FLOP per product of the forward (2 for it,
+    4 for its backward) plus 2 per product that remat recomputes."""
+    fwd, remat = _product_terms(cfg, batch, seq, src_len)
+    return 6 * fwd + 2 * remat
+
+
+def _train_child(tag: str, args: list, need: float) -> dict:
+    """``python -m repro_torch.launch.train <args>`` with its checkpoint
+    under ``build/`` (or the temp dir) where ``need`` bytes are free; the
+    losses and grad norms must be finite; the checkpoint is deleted
+    after."""
     import os
     import shutil
     import tempfile
 
-    from repro_torch.configs import ARCHS
-    need = CKPT_ROOM
     root = Path(__file__).resolve().parent / "build"
     root.mkdir(exist_ok=True)
     dirs = [str(root), tempfile.gettempdir()]
     free = {d: shutil.disk_usage(d).free for d in dirs}
     base = next((d for d in dirs if free[d] >= need), None)
-    check(base is not None, f"(m2) no room for the {need / 1e9:.0f} GB "
+    check(base is not None, f"{tag} no room for the {need / 1e9:.0f} GB "
           f"checkpoint: free bytes {free}")
     ckpt = os.path.join(base, "llm_train_ckpt")
     shutil.rmtree(ckpt, ignore_errors=True)
     try:
-        rec = _run_child("(m2)", "repro_torch.launch.train",
-                         TRAIN_ARGS + ["--ckpt-dir", ckpt], 900)
+        rec = _run_child(tag, "repro_torch.launch.train",
+                         args + ["--ckpt-dir", ckpt], 900)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
-    check(len(rec["loss"]) == TRAIN_STEPS and all(
+    check(len(rec["loss"]) == rec["steps"] and all(
         np.isfinite(rec["loss"])) and all(np.isfinite(rec["grad_norm"])),
-        f"(m2) non-finite loss or grad norm: {rec['loss']} "
+        f"{tag} non-finite loss or grad norm: {rec['loss']} "
         f"{rec['grad_norm']}")
+    rec.update(ckpt_base=base, ckpt_free_bytes=free[base])
+    return rec
+
+
+def _print_train(tag: str, rec: dict, batch: int, seq: int, smi: str
+                 ) -> None:
+    from repro_torch.configs import ARCHS
     cfg = ARCHS[rec["arch"]].reduced() if rec["reduced"] else \
         ARCHS[rec["arch"]]
-    flops = _train_flops(cfg, rec["params"], rec["tokens_per_step"])
+    flops = _train_flops(cfg, batch, seq)
     bound_ms = flops / BF16_FLOPS_PER_S * 1e3
     save_s = rec["saves"][-1][1]
-    rec.update(flops=flops, bound_ms=bound_ms, ckpt_free_bytes=free[base])
-    print(f"(m2) train {rec['arch']} full width [{smi}]: {TRAIN_STEPS} "
-          f"steps of {TRAIN_BATCH}x{TRAIN_SEQ} tokens, step times "
-          f"{[round(s * 1e3, 1) for s in rec['step_s']]} ms, "
+    rec.update(flops=flops, bound_ms=bound_ms)
+    print(f"{tag} train {rec['arch']} full width [{smi}]: {rec['steps']} "
+          f"steps of {batch}x{seq} tokens, step times "
+          f"{[round(x * 1e3, 1) for x in rec['step_s']]} ms, "
           f"{rec['ms_per_step']:.1f} ms/step (median after the first) = "
           f"{rec['tokens_per_s']:.0f} tokens/s; losses "
           f"{[round(x, 4) for x in rec['loss']]}, grad norms "
@@ -2684,9 +2790,18 @@ def phase_llm_train(smi: str, report: dict) -> None:
           f"{bound_ms:.1f} ms ({flops:.4e} FLOP; "
           f"{bound_ms / rec['ms_per_step']:.3f} of it); checkpoint "
           f"{rec['ckpt_bytes'] / 1e9:.3f} GB saved in {save_s:.2f}s "
-          f"({rec['ckpt_bytes'] / save_s / 1e9:.2f} GB/s) under {base} "
-          f"({free[base] / 1e9:.1f} GB free before), deleted; child "
-          f"{rec['child_wall_s']:.1f}s", flush=True)
+          f"({rec['ckpt_bytes'] / save_s / 1e9:.2f} GB/s) under "
+          f"{rec['ckpt_base']} ({rec['ckpt_free_bytes'] / 1e9:.1f} GB free "
+          f"before), deleted; child {rec['child_wall_s']:.1f}s", flush=True)
+
+
+def phase_llm_train(smi: str, report: dict) -> None:
+    """(m2) ``repro_torch.launch.train``: stablelm-1.6b at full width and
+    depth, 4 steps of 4 x 4096 tokens (train_4k's length, its batch of 256
+    cut to 4), remat on; finite loss and grad norm; the supervisor's final
+    checkpoint (params + m + v) timed, sized and deleted."""
+    rec = _train_child("(m2)", TRAIN_ARGS, CKPT_ROOM)
+    _print_train("(m2)", rec, TRAIN_BATCH, TRAIN_SEQ, smi)
     report["llm_train"] = rec
 
 
@@ -2726,7 +2841,7 @@ def phase_llm_moe(dev, smi: str, report: dict) -> None:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     prefill_s = times[1]
-    cache = grow_cache(cache, MOE_PROMPT + MOE_GEN)
+    cache = grow_cache(cache, MOE_PROMPT + MOE_GEN, cfg.family)
     tok = torch.argmax(logits[:, -1], dim=-1)
     t0 = time.perf_counter()
     with torch.no_grad():
@@ -2773,10 +2888,57 @@ def phase_llm_moe(dev, smi: str, report: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def _reduced_on_card(arch: str, dev, tag: str) -> dict:
+    """``arch``'s reduced() config on the card against the port's CPU with
+    the same weights and inputs (``pipeline``'s 4 x 64 tokens and the
+    frontend stub): the loss (rtol 1e-3), the logits of a 48-token prefill
+    and 4 decode steps, and the final cache or state (atol 5e-2)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import pipeline
+    from repro_torch.launch.serve_llm import frontend_inputs, grow_cache
+    from repro_torch.models import build, init_params
+    from repro_torch.models.common import tree_leaves, tree_map
+
+    cpu = torch.device("cpu")
+    cfg = ARCHS[arch].reduced()
+    api = build(cfg)
+    params = init_params(api, torch.Generator().manual_seed(0))
+    data = pipeline.DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4,
+                               seed=4)
+    host = {k: torch.from_numpy(v)
+            for k, v in pipeline.batch_at(data, 0).items()}
+    host.update(frontend_inputs(cfg, 4, 48, torch.Generator().manual_seed(1),
+                                cpu))
+    outs = []
+    for d in (cpu, dev):
+        p = tree_map(lambda t: t.to(d), params)
+        b = {k: v.to(d) for k, v in host.items()}
+        prompt = {k: v[:, :48] if k == "tokens" else v for k, v in b.items()
+                  if k != "labels"}
+        with torch.no_grad():
+            loss = float(api.loss(p, b))
+            logits, cache = api.prefill(p, prompt)
+            cache = grow_cache(cache, 52, cfg.family)
+            lg = [logits.float().cpu()]
+            for t in range(48, 52):
+                step, cache = api.decode(p, {"token": b["tokens"][:, t],
+                                             "pos": t}, cache)
+                lg.append(step.float().cpu())
+        outs.append((loss, torch.stack(lg),
+                     [c.float().cpu() for c in tree_leaves(cache)]))
+    (lc, oc, cc), (lg, og, cg) = outs
+    err = float((og - oc).abs().max())
+    state_err = max(float((a - b).abs().max()) for a, b in zip(cg, cc))
+    check(abs(lg - lc) <= 1e-3 * abs(lc) and err <= 5e-2
+          and state_err <= 5e-2, f"{tag} {arch}: card loss {lg} vs CPU "
+          f"{lc}, logits max |diff| {err}, cache or state {state_err}")
+    return dict(loss_card=lg, loss_cpu=lc, logits_max_abs=err,
+                state_max_abs=state_err)
+
+
 def phase_llm_parity(dev, smi: str, report: dict) -> None:
     """(m4) The card against the port's CPU at reduced() stablelm-1.6b and
-    qwen3-moe with the same weights: loss (rtol 1e-3), prefill and decode
-    logits (atol 5e-2); the flash autograd.Function's grads (atol 5e-2,
+    qwen3-moe (:func:`_reduced_on_card`); the flash autograd.Function's grads (atol 5e-2,
     rtol 2e-2); and a training run stopped after 2 of 4 steps and
     restored from its checkpoint bit-identical to the uninterrupted one."""
     import tempfile
@@ -2785,44 +2947,15 @@ def phase_llm_parity(dev, smi: str, report: dict) -> None:
     from repro_torch.data import pipeline
     from repro_torch.models import build, init_params
     from repro_torch.models.attention import chunked_attention
-    from repro_torch.models.common import (tree_leaves, tree_map,
-                                           use_reference_numerics)
+    from repro_torch.models.common import tree_leaves, use_reference_numerics
     from repro_torch.optim import adamw
     from repro_torch.runtime import SupervisorConfig, TrainSupervisor
     from repro_torch.train import steps
 
     use_reference_numerics()
     cpu = torch.device("cpu")
-    worst = {}
-    for arch in (LLM_ARCH, MOE_ARCH):
-        cfg = ARCHS[arch].reduced()
-        api = build(cfg)
-        params = init_params(api, torch.Generator().manual_seed(0))
-        data = pipeline.DataConfig(vocab=cfg.vocab, seq_len=64,
-                                   global_batch=4, seed=4)
-        host = {k: torch.from_numpy(v)
-                for k, v in pipeline.batch_at(data, 0).items()}
-        outs = []
-        for d in (cpu, dev):
-            p = tree_map(lambda t: t.to(d), params)
-            b = {k: v.to(d) for k, v in host.items()}
-            with torch.no_grad():
-                loss = float(api.loss(p, b))
-                logits, cache = api.prefill(p, {"tokens": b["tokens"][:, :48]})
-                cache = tree_map(lambda c: torch.nn.functional.pad(
-                    c, (0, 0, 0, 0, 0, 4)), cache)
-                dec = []
-                for t in range(48, 52):
-                    lg, cache = api.decode(p, {"token": b["tokens"][:, t],
-                                               "pos": t}, cache)
-                    dec.append(lg.float().cpu())
-            outs.append((loss, logits.float().cpu(), torch.stack(dec)))
-        (lc, pc, dc), (lg, pg, dg) = outs
-        err = max(float((pg - pc).abs().max()), float((dg - dc).abs().max()))
-        check(abs(lg - lc) <= 1e-3 * abs(lc) and err <= 5e-2,
-              f"(m4) {arch}: card loss {lg} vs CPU {lc}, logits max |diff| "
-              f"{err}")
-        worst[arch] = dict(loss_card=lg, loss_cpu=lc, logits_max_abs=err)
+    worst = {arch: _reduced_on_card(arch, dev, "(m4)")
+             for arch in (LLM_ARCH, MOE_ARCH)}
 
     gen = torch.Generator().manual_seed(2)
     q = torch.randn(2, 256, 8, 64, generator=gen)
@@ -3022,6 +3155,346 @@ def phase_llm(dev, smi: str, report: dict) -> None:
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# (n) the rwkv, hybrid, encdec and vlm families at full width
+
+G2_ARCHS = ("rwkv6-1.6b", "zamba2-7b", "seamless-m4t-large-v2",
+            "llama-3.2-vision-11b")
+G2_BATCH, G2_PROMPT, G2_GEN, G2_CHECK = 8, 1024, 32, 16
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+G2_TRAIN_STEPS, G2_TRAIN_SEQ, G2_TRAIN_BATCH = 3, 1024, 4
+G2_TRAIN_ARGS = ["--arch", ENCDEC_ARCH, "--steps", str(G2_TRAIN_STEPS),
+                 "--seq-len", str(G2_TRAIN_SEQ), "--global-batch",
+                 str(G2_TRAIN_BATCH), "--ckpt-every", "1000"]
+G2_CKPT_ROOM = 27e9                # (n2)'s checkpoint: 24.4 GB + slack
+# (n3) depth cuts, forced by float32 params + grads: zamba2-7b 2 x 27 GB
+# and llama-3.2-vision-11b 2 x 39 GB at full depth
+G2_FB = (("rwkv6-1.6b", None), ("zamba2-7b", 15),
+         ("llama-3.2-vision-11b", 10))
+G2_FB_BATCH, G2_FB_SEQ = 2, 2048
+G2_DECODE_POS, G2_DECODE_LEN = 1056, 1088   # (n5)'s zamba2 decode step
+
+
+def phase_g2_serve(smi: str, report: dict) -> None:
+    """(n1) ``serve_llm`` for each of the four families at full width and
+    depth in its own process: 8 prompts of 1024 tokens (the encdec's
+    source and the vlm's 1600 image tokens from the frontend stub), 32
+    generated, the first 16 decode steps held to one forward; each beside
+    its family's decode byte bound."""
+    from repro_torch.configs import ARCHS
+    out = {}
+    for arch in G2_ARCHS:
+        cfg = ARCHS[arch]
+        n_check = 0 if cfg.family == "hybrid" else G2_CHECK    # (n1b)
+        rec = _run_child("(n1)", "repro_torch.launch.serve_llm", [
+            "--arch", arch, "--no-reduced", "--batch", str(G2_BATCH),
+            "--prompt-len", str(G2_PROMPT), "--gen", str(G2_GEN),
+            "--check", str(n_check)], 600)
+        if n_check:
+            check(rec["check"]["positions"] == n_check + 1,
+                  f"(n1) {arch}: {rec['check']}")
+            held = (f"decode-matches-prefill over "
+                    f"{rec['check']['positions']} positions, max |diff| "
+                    f"{rec['check']['max_abs_diff']:.4f} (atol 0.1, rtol "
+                    f"0.05)")
+        else:
+            held = "decode held to the forward block by block in (n1b)"
+        mean_pos = rec["prompt_len"] + (rec["gen"] - 2) / 2
+        nbytes = _decode_bytes(cfg, rec["batch"], mean_pos,
+                               rec["prompt_len"])
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        rec.update(decode_bytes=nbytes, decode_bound_ms=bound_ms)
+        print(f"(n1) serve_llm {arch} ({cfg.family}) full width and depth "
+              f"({rec['params']} params, bf16 serving copy) [{smi}]: "
+              f"prefill {rec['batch']}x{rec['prompt_len']} "
+              f"{rec['prefill_s']:.4f}s (first call "
+              f"{rec['prefill_first_s']:.3f}s), decode "
+              f"{rec['decode_ms_per_step']:.3f} ms/step = "
+              f"{rec['decode_tokens_per_s']:.1f} tokens/s over "
+              f"{rec['gen'] - 1} steps, peak {rec['peak_bytes'] / 2**30:.2f}"
+              f" GiB; decode byte bound {bound_ms:.3f} ms "
+              f"({nbytes / 1e9:.3f} GB at the mean position {mean_pos:.0f};"
+              f" {bound_ms / rec['decode_ms_per_step']:.3f} of it); "
+              f"{held}; child {rec['child_wall_s']:.1f}s", flush=True)
+        out[arch] = rec
+    report["g2_serve"] = out
+
+
+def phase_g2_train(smi: str, report: dict) -> None:
+    """(n2) ``repro_torch.launch.train`` on seamless-m4t-large-v2 at full
+    width and depth (the ``src_embed`` frontend stub in the launcher), 3
+    steps of 4 x 1024 tokens; the 24.4 GB checkpoint saved and deleted."""
+    rec = _train_child("(n2)", G2_TRAIN_ARGS, G2_CKPT_ROOM)
+    _print_train("(n2)", rec, G2_TRAIN_BATCH, G2_TRAIN_SEQ, smi)
+    report["g2_train"] = rec
+
+
+def _g2_batch(cfg, batch: int, seq: int, dev, seed: int = 3) -> dict:
+    """``pipeline``'s tokens and labels and the frontend stub (bf16)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import pipeline
+    data = pipeline.DataConfig(vocab=cfg.vocab, seq_len=seq,
+                               global_batch=batch, seed=seed)
+    out = {k: torch.from_numpy(v).to(dev)
+           for k, v in pipeline.batch_at(data, 0).items()}
+    stub = pipeline.frontend_stub(cfg, ShapeConfig("train", seq, batch,
+                                                   "train"), 0)
+    if stub is not None:
+        key = "src_embed" if cfg.family == "encdec" else "img_embed"
+        out[key] = torch.from_numpy(stub).to(dev, torch.bfloat16)
+    return out
+
+
+def phase_g2_forward_backward(dev, smi: str, report: dict) -> None:
+    """(n3) one ``loss_fn`` forward + backward (no optimizer) at full width
+    on 2 x 2048 tokens, float32 params, remat on: rwkv6-1.6b at full depth,
+    zamba2-7b cut to 15 layers (2 groups of 6 + the 3-block tail),
+    llama-3.2-vision-11b cut to 10 (2 groups of 5; 1600 image tokens).
+    (n5) first: rwkv6-1.6b's at full width cut to 2 layers (a layer's
+    split is the same at any depth; the profiler's cost grows with the
+    ~400,000 launches of the full depth), warm, timed and profiled; it
+    loads every kernel the full depth runs, so that one runs once.  The
+    others run twice and the second, warm call is timed."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build, common, init_params
+    from repro_torch.train.steps import value_and_grad
+
+    common.use_reference_numerics()
+
+    def setup(cfg):
+        api = build(cfg)
+        params = init_params(api, torch.Generator(device=dev).manual_seed(0))
+        return api, params, _g2_batch(cfg, G2_FB_BATCH, G2_FB_SEQ, dev)
+
+    def timed(api, params, batch):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        loss, grads = value_and_grad(api.loss, params, batch)
+        finite = all(bool(torch.isfinite(g).all())
+                     for g in common.tree_leaves(grads))
+        torch.cuda.synchronize(dev)
+        return (time.perf_counter() - t0) * 1e3, float(loss), finite
+
+    cfg = dataclasses.replace(ARCHS["rwkv6-1.6b"], n_layers=2)
+    api, params, batch = setup(cfg)
+    timed(api, params, batch)
+    wall, _, _ = timed(api, params, batch)
+    split = _kernel_split(lambda: value_and_grad(api.loss, params, batch),
+                          dev)
+    _print_split(f"(n5) rwkv6-1.6b loss_fn forward + backward, full width "
+                 f"cut to 2 layers ({G2_FB_BATCH}x{G2_FB_SEQ} tokens, "
+                 f"{G2_FB_SEQ // cfg.seq_chunk} chunk steps a layer)", wall,
+                 split, smi)
+    report.setdefault("g2_split", {})["rwkv_train_2_layers"] = dict(
+        wall_ms=wall, **split)
+    del params, batch
+    torch.cuda.empty_cache()
+
+    out = {}
+    for arch, layers in G2_FB:
+        cfg = ARCHS[arch] if layers is None else \
+            dataclasses.replace(ARCHS[arch], n_layers=layers)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)     # earlier phases' tensors
+        api, params, batch = setup(cfg)
+        runs = [timed(api, params, batch)
+                for _ in range(1 if arch == "rwkv6-1.6b" else 2)]
+        wall, loss, finite = runs[-1]
+        check(finite and np.isfinite(loss), f"(n3) {arch}: loss {loss}, "
+              f"grads finite {finite}")
+        peak = torch.cuda.max_memory_allocated(dev) - held
+        flops = _train_flops(cfg, G2_FB_BATCH, G2_FB_SEQ)
+        bound_ms = flops / BF16_FLOPS_PER_S * 1e3
+        depth = "full depth" if layers is None else \
+            f"cut to {layers} of {ARCHS[arch].n_layers} layers"
+        first = f" (first call {runs[0][0]:.1f})" if len(runs) > 1 else ""
+        print(f"(n3) {arch} full width, {depth} ({api.num_params} params, "
+              f"float32) [{smi}]: loss_fn forward + backward on "
+              f"{G2_FB_BATCH}x{G2_FB_SEQ} tokens {wall:.1f} ms{first}, loss "
+              f"{loss:.6f}, all grads finite {finite}; bf16 FLOP bound "
+              f"{bound_ms:.1f} ms ({flops:.4e} FLOP; {bound_ms / wall:.3f} "
+              f"of it); peak {peak / 2**30:.2f} GiB above the "
+              f"{held / 2**30:.2f} GiB held before", flush=True)
+        out[arch] = dict(layers=cfg.n_layers, params=api.num_params,
+                         wall_ms=wall, loss=loss, grads_finite=finite,
+                         flops=flops, bound_ms=bound_ms, peak_bytes=peak)
+        del params, batch
+        torch.cuda.empty_cache()
+    report["g2_forward_backward"] = out
+
+
+def phase_g2_parity(dev, smi: str, report: dict) -> None:
+    """(n4) The card against the port's CPU at reduced() rwkv6, zamba2,
+    seamless-m4t and llama-vision (:func:`_reduced_on_card`)."""
+    from repro_torch.models.common import use_reference_numerics
+
+    use_reference_numerics()
+    worst = {arch: _reduced_on_card(arch, dev, "(n4)") for arch in G2_ARCHS}
+    print(f"(n4) the card against the CPU, reduced configs [{smi}]: "
+          + "; ".join(f"{a} loss {w['loss_card']:.6f} vs "
+                      f"{w['loss_cpu']:.6f}, prefill + 4 decode logits max "
+                      f"|diff| {w['logits_max_abs']:.4f}, final state/cache "
+                      f"{w['state_max_abs']:.4f}" for a, w in worst.items()),
+          flush=True)
+    report["g2_parity"] = worst
+
+
+def _held(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """(max |diff|, max excess over atol 0.1 + rtol 0.05)."""
+    diff = (got.float() - want.float()).abs()
+    return (float(diff.max()),
+            float((diff - 0.1 - 0.05 * want.float().abs()).max()))
+
+
+def phase_g2_hybrid(dev, smi: str, report: dict) -> None:
+    """(n1b) zamba2-7b's decode held to its forward at full width and depth
+    block by block: every Mamba2 block and every application of the shared
+    block gets the forward's own input, its decode (a prefill of the 1024
+    prompt positions at the serving chunk, then 16 one-token steps) is held
+    to its forward over the 1040 positions (the check's chunks) at atol
+    0.1 + rtol 0.05, and the forward's output feeds the next block.  The
+    logits' check of (n1) cannot hold at this depth: bf16 rounding
+    differences grow ~1.2-1.5x a Mamba2 block at this init (the
+    reference's own forward too), so two chunkings of the same forward
+    differ at O(1) after 81 blocks -- printed here.  (n5) Then one
+    full-width decode step (batch 8 at position 1056 of 1088) timed and
+    profiled."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.serve_llm import check_config, init_serving_params
+    from repro_torch.models import build, common, ssm
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.dense import embed
+
+    common.use_reference_numerics()
+    cfg = ARCHS["zamba2-7b"]
+    api = build(cfg)
+    serve = init_serving_params(api, torch.Generator(device=dev).manual_seed(0))
+    b, s, n_fed = 2, G2_PROMPT, G2_CHECK
+    n = s + n_fed
+    fwd_cfg = check_config(cfg, n)
+    tokens = torch.randint(0, cfg.vocab, (b, n), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    d_in, heads, n_state = ssm._dims(cfg)
+    groups, tail = ssm._zamba_shape(cfg)
+    sp = serve["shared_attn"]
+    rows = []                    # (block, max |diff|, excess)
+
+    def zero_state():
+        return ssm.MambaState(None, torch.zeros(
+            b, heads, n_state, cfg.ssm_head_dim, device=dev))
+
+    def mamba(h, lp):
+        want, _ = ssm.mamba_block(h, lp, fwd_cfg, zero_state())
+        _, st = ssm.mamba_block(h[:, :s], lp, cfg, zero_state())
+        got = []
+        for j in range(s, n):
+            o, st = ssm.mamba_block(h[:, j:j + 1], lp, cfg, st)
+            got.append(o)
+        rows.append(("mamba",) + _held(torch.cat(got, 1), want[:, s:]))
+        return want
+
+    def shared(h):
+        want, _ = ssm._shared_block(h, sp, fwd_cfg, None, None, False)
+        _, kv = ssm._shared_block(h[:, :s], sp, cfg, None, None, True)
+        kv = KVCache(*(torch.nn.functional.pad(c, (0, 0, 0, 0, 0, n_fed))
+                       for c in kv))
+        got = [ssm._shared_block(h[:, j:j + 1], sp, cfg, kv, j, False)[0]
+               for j in range(s, n)]
+        rows.append(("shared",) + _held(torch.cat(got, 1), want[:, s:]))
+        return want
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        h = embed(serve, tokens)
+        for g in range(groups):
+            for i in range(cfg.attn_period):
+                h = mamba(h, {k: v[g, i] for k, v in serve["mamba"].items()})
+            h = shared(h)
+        for i in range(tail):
+            h = mamba(h, {k: v[i] for k, v in serve["mamba_tail"].items()})
+        prompt = tokens[:, :s]
+        a = ssm.forward(serve, prompt, cfg)
+        c = ssm.forward(serve, prompt, dataclasses.replace(cfg, seq_chunk=16))
+        chunk_diff = float((a.float() - c.float()).abs().max())
+    wall = time.perf_counter() - t0
+    worst = max(r[1] for r in rows)
+    excess = max(r[2] for r in rows)
+    check(len(rows) == cfg.n_layers + groups and excess <= 0,
+          f"(n1b) zamba2-7b decode differs from its forward block by "
+          f"block: worst {worst} (excess {excess})")
+    print(f"(n1b) zamba2-7b decode held to its forward block by block at "
+          f"full width and depth [{smi}]: {cfg.n_layers} Mamba2 blocks and "
+          f"{groups} shared-block applications, each on the forward's own "
+          f"input, batch {b}, {n_fed} decode steps after a {s}-token prefill: "
+          f"max |diff| {worst:.4f} (atol 0.1, rtol 0.05; worst Mamba2 "
+          f"{max(r[1] for r in rows if r[0] == 'mamba'):.4f}, shared "
+          f"{max(r[1] for r in rows if r[0] == 'shared'):.4f}); the logits "
+          f"of one forward over the prompt at chunk 128 against chunk 16: "
+          f"max |diff| {chunk_diff:.4f} (bf16 rounding grown over "
+          f"{cfg.n_layers} blocks: why (n1) holds no logits check here); "
+          f"{wall:.1f}s", flush=True)
+    report["g2_hybrid_blocks"] = dict(blocks=len(rows), max_abs_diff=worst,
+                                      chunk_logits_diff=chunk_diff)
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    state = common.tree_map(
+        lambda x: (torch.randn(x.shape, generator=gen, device=dev) * 0.1
+                   ).to(x.dtype) if x.dtype != torch.int32 else
+        torch.full(x.shape, G2_DECODE_POS, dtype=x.dtype, device=dev),
+        api.cache_specs(G2_BATCH, G2_DECODE_LEN))
+    tok = torch.zeros(G2_BATCH, dtype=torch.int32, device=dev)
+
+    def decode():
+        with torch.no_grad():
+            return api.decode(serve, {"token": tok, "pos": G2_DECODE_POS},
+                              state)
+
+    decode()
+    reps = []
+    for _ in range(5):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        logits, _ = decode()
+        torch.cuda.synchronize(dev)
+        reps.append((time.perf_counter() - t0) * 1e3)
+    check(bool(torch.isfinite(logits.float()).all()), "(n5) zamba2 decode "
+          "logits not finite")
+    wall = statistics.median(reps)
+    split = _kernel_split(decode, dev)
+    bound = _decode_bytes(cfg, G2_BATCH, G2_DECODE_POS) / HBM_BYTES_PER_S
+    _print_split(f"(n5) one zamba2-7b decode step (batch {G2_BATCH}, "
+                 f"position {G2_DECODE_POS}; byte bound {bound * 1e3:.3f} "
+                 f"ms)", wall, split, smi)
+    report.setdefault("g2_split", {})["zamba_decode"] = dict(
+        wall_ms=wall, bound_ms=bound * 1e3, **split)
+    del serve, state
+    torch.cuda.empty_cache()
+
+
+def phase_g2(dev, smi: str, report: dict) -> None:
+    """(n): (n1), (n1b) with (n5)'s zamba2 decode step, (n2), (n5)'s rwkv6
+    forward + backward with (n3), (n4); with each part's wall time."""
+    t0 = time.perf_counter()
+    parts = {}
+    for name, fn in (("n1", lambda: phase_g2_serve(smi, report)),
+                     ("n1b+n5", lambda: phase_g2_hybrid(dev, smi, report)),
+                     ("n2", lambda: phase_g2_train(smi, report)),
+                     ("n5+n3", lambda: phase_g2_forward_backward(
+                         dev, smi, report)),
+                     ("n4", lambda: phase_g2_parity(dev, smi, report))):
+        t1 = time.perf_counter()
+        fn()
+        parts[name] = time.perf_counter() - t1
+    print(f"(n) phase (n) took {time.perf_counter() - t0:.3f}s ("
+          + ", ".join(f"{k} {v:.1f}s" for k, v in parts.items())
+          + f") [{smi}]", flush=True)
+
+
 def print_rates(kernels: list) -> None:
     """(e) Each kernel's achieved rate, the bytes its bound counts over its
     measured time, beside the bound; adds ``achieved_bytes_per_s`` (and
@@ -3127,6 +3600,8 @@ def main() -> int:
           f" GiB (phases (b)-(l))", flush=True)
     torch.cuda.empty_cache()
     phase_llm(dev, smi, report)
+    torch.cuda.empty_cache()
+    phase_g2(dev, smi, report)
 
     tpu = "src/repro/kernels/spinner_scores.py"
     replaces = {"fused_update_csr": f"{tpu}:241",

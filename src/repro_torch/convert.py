@@ -18,6 +18,11 @@ nothing of the reference package: the caller hands over numpy views.
     ``torch.bfloat16``).
   * ``train_state_from_reference(s, device)`` does the same for a whole
     ``TrainState`` (params, AdamW step / m / v, step).
+  * ``cache_from_reference(c, device)`` takes a model's decode cache or
+    recurrent state as nested host arrays -- ``KVCache``, ``RWKVState``,
+    ``ZambaState`` (its ``MambaState``s and its ``pos`` scalar),
+    ``EncDecCache`` or ``VLMCache`` -- and gives the port's, each
+    NamedTuple matched by its class name.
 """
 from __future__ import annotations
 
@@ -26,7 +31,12 @@ import torch
 
 from .core.engine import SpinnerState, init_state
 from .core.graph import Graph
+from .models.attention import KVCache
 from .models.common import tree_map
+from .models.encdec import EncDecCache
+from .models.rwkv import RWKVState
+from .models.ssm import MambaState, ZambaState
+from .models.vlm import VLMCache
 from .optim.adamw import AdamWState
 from .train.steps import TrainState
 
@@ -36,6 +46,8 @@ _CARRIED = {"best_score": torch.float32, "stall": torch.int32,
             "total_messages": torch.float32, "score": torch.float32,
             "migrations": torch.int32, "message_mass": torch.float32,
             "exchanged_bytes": torch.float32}
+_CACHES = {c.__name__: c for c in (KVCache, RWKVState, MambaState, ZambaState,
+                                   EncDecCache, VLMCache)}
 
 
 def graph_from_reference(g) -> Graph:
@@ -91,3 +103,12 @@ def train_state_from_reference(s, device) -> TrainState:
                        m=params_from_reference(opt.m, device),
                        v=params_from_reference(opt.v, device)),
         step=_tensor(s.step, device).to(torch.int32))
+
+
+def cache_from_reference(c, device):
+    """The port's decode cache or recurrent state on ``device`` from a
+    reference one of host arrays (``jax.device_get(cache)``)."""
+    if isinstance(c, tuple) and hasattr(c, "_fields"):
+        return _CACHES[type(c).__name__](
+            *(cache_from_reference(x, device) for x in c))
+    return _tensor(c, device)

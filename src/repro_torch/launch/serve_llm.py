@@ -13,14 +13,20 @@ the CUDA card unless ``--device cpu`` asks for the CPU::
 (``store_true`` with ``default=True``), ``--no-reduced`` turns it off, so
 the full-width model can be served.
 
-The params are drawn in float32 and served from a bf16 copy made once
-(:func:`serving_params`): the reference casts each weight to bf16 at every
-use, the same bits.  The KV cache is allocated at ``prompt + gen``
-positions once, the prompt's entries copied in, and each decode step
-writes its position in place.  The prefill runs twice and the second,
+The params are drawn in float32 leaf by leaf, each cast to the bf16
+serving copy as soon as it is drawn (:func:`init_serving_params`), so the
+peak at init is the bf16 model and one float32 leaf: the reference casts
+each weight to bf16 at every use, the same bits; leaves a model reads in
+float32 stay float32.  The encdec and vlm families get their frontend
+stubs, ``src_embed`` (B, prompt, d) and ``img_embed`` (B, n_img, d), drawn
+from the run's generator after the prompts.  The KV caches are grown to
+``prompt + gen`` positions once, family by family (:func:`grow_cache`),
+the prompt's entries copied in, and each decode step writes its position
+in place; rwkv's recurrent state has nothing to grow.  The prefill runs twice and the second,
 warm call is the one timed (the first also loads the device's kernels).  ``--check N`` holds the logits of the first
 N decode steps and of the prefill to one full forward over the same
-tokens (atol 0.1, rtol 0.05, the reference test's tolerance).  The last
+tokens and the same frontend stub (atol 0.1, rtol 0.05, the reference
+test's tolerance).  The last
 line of the output is a JSON record of the run.
 """
 from __future__ import annotations
@@ -28,31 +34,43 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import time
 
 import torch
 
 from ..configs import ARCHS
 from ..core.engine import resolve_device
-from ..models import build, init_params
-from ..models.attention import KVCache
-from ..models.common import (COMPUTE_DTYPE, tree_leaves_with_path,
-                             tree_map, tree_unflatten, use_reference_numerics)
+from ..models import build
+from ..models.common import (COMPUTE_DTYPE, init_from_specs,
+                             tree_leaves_with_path, tree_map, tree_unflatten,
+                             use_reference_numerics)
 from ..models.model_zoo import family_module
 from ..train import steps
 
-# leaves the models read in float32 (norm scales, attention biases): the
-# serving copy keeps them so
-_F32_LEAVES = ("norm", "/bq", "/bk", "/bv")
+# leaves some model reads in float32 (norm scales, attention biases,
+# rwkv's decay and bonus, the Mamba conv / decay / skip / dt terms, the
+# vlm's gates): the serving copy keeps them so
+_F32_LEAVES = ("norm", "/bq", "/bk", "/bv", "/ln", "scale", "decay0",
+               "bonus_u", "conv_", "A_log", "skip_D", "dt_bias", "gate_")
+
+
+def _serving_leaf(path: str, p: torch.Tensor) -> torch.Tensor:
+    return p if any(s in path for s in _F32_LEAVES) else p.to(COMPUTE_DTYPE)
 
 
 def serving_params(params: dict) -> dict:
     """A copy of ``params`` for inference: every leaf the models only read
     through a bf16 cast is cast once, the rest stay float32."""
-    leaves = [p if any(s in path for s in _F32_LEAVES) else
-              p.to(COMPUTE_DTYPE)
-              for path, p in tree_leaves_with_path(params)]
-    return tree_unflatten(params, leaves)
+    return tree_unflatten(params, [_serving_leaf(path, p) for path, p in
+                                   tree_leaves_with_path(params)])
+
+
+def init_serving_params(api, key: torch.Generator, device=None) -> dict:
+    """``serving_params(init_params(api, key, device))``, bit for bit, each
+    leaf cast as soon as it is drawn."""
+    return init_from_specs(api.param_specs, key, device,
+                           finish=_serving_leaf)
 
 
 def _sync(device: torch.device) -> None:
@@ -60,16 +78,45 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def grow_cache(cache: KVCache, max_len: int) -> KVCache:
-    """The dense / moe stacked cache (L, B, S, KV, hd) with its position
-    axis (2) grown to ``max_len``; the new positions are zeros."""
-    def grow(c):
-        out = torch.zeros(*c.shape[:2], max_len, *c.shape[3:], dtype=c.dtype,
-                          device=c.device)
-        out[:, :, :c.shape[2]] = c
-        return out
+def grow_cache(cache, max_len: int, family: str):
+    """A prefill's cache with its position axis grown to ``max_len`` (the
+    new positions zeros): dense / moe (L, B, S, KV, hd) and the hybrid's
+    attention caches on axis 2, encdec's self caches on axis 2 (its cross
+    caches stay), vlm's (G, P-1, B, S, KV, hd) self caches on axis 3;
+    rwkv's recurrent state has no position axis."""
+    def grow(axis):
+        def fn(c):
+            shape = list(c.shape)
+            shape[axis] = max_len
+            out = torch.zeros(shape, dtype=c.dtype, device=c.device)
+            out.narrow(axis, 0, c.shape[axis]).copy_(c)
+            return out
+        return fn
 
-    return tree_map(grow, cache)
+    if family in ("dense", "moe"):
+        return tree_map(grow(2), cache)
+    if family == "encdec":
+        return cache._replace(self_kv=tree_map(grow(2), cache.self_kv))
+    if family == "vlm":
+        return cache._replace(self_kv=tree_map(grow(3), cache.self_kv))
+    if family == "hybrid":
+        return cache._replace(attn=tree_map(grow(2), cache.attn))
+    return cache
+
+
+def frontend_inputs(cfg, batch: int, prompt_len: int,
+                    gen: torch.Generator, device) -> dict:
+    """The stub frontend's embeddings a family's prefill takes (none for
+    the token-only families), drawn from ``gen``."""
+    if cfg.family == "encdec":
+        shape = (batch, prompt_len, cfg.d_model)
+    elif cfg.family == "vlm":
+        shape = (batch, cfg.n_img_tokens, cfg.d_model)
+    else:
+        return {}
+    key = "src_embed" if cfg.family == "encdec" else "img_embed"
+    return {key: torch.randn(shape, generator=gen, device=device).to(
+        COMPUTE_DTYPE)}
 
 
 def serve(arch: str, reduced: bool = True, batch: int = 4,
@@ -85,7 +132,7 @@ def serve(arch: str, reduced: bool = True, batch: int = 4,
         cfg = cfg.reduced()
     api = build(cfg)
     gen_key = torch.Generator(device=dev).manual_seed(seed)
-    params = serving_params(init_params(api, gen_key))
+    params = init_serving_params(api, gen_key)
     print(f"arch={cfg.arch} params={api.num_params / 1e6:.1f}M "
           f"device={dev}", flush=True)
 
@@ -94,6 +141,7 @@ def serve(arch: str, reduced: bool = True, batch: int = 4,
     tok_key = torch.Generator(device=dev).manual_seed(seed + 1)
     tokens = torch.randint(0, cfg.vocab, (b, s), generator=tok_key,
                            device=dev, dtype=torch.int32)
+    extras = frontend_inputs(cfg, b, s, tok_key, dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 
@@ -102,7 +150,7 @@ def serve(arch: str, reduced: bool = True, batch: int = 4,
     for _ in range(2):      # the first call also loads the device's kernels
         _sync(dev)
         t0 = time.perf_counter()
-        logits, cache = prefill(params, {"tokens": tokens})
+        logits, cache = prefill(params, {"tokens": tokens, **extras})
         next_tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
         _sync(dev)
         times.append(time.perf_counter() - t0)
@@ -110,7 +158,7 @@ def serve(arch: str, reduced: bool = True, batch: int = 4,
     print(f"prefill {b}x{s}: {prefill_s:.3f}s (first call "
           f"{times[0]:.3f}s)", flush=True)
     checked = [logits[:, -1]] if check else []
-    cache = grow_cache(cache, max_len)
+    cache = grow_cache(cache, max_len, cfg.family)
 
     out = [next_tok]
     decode = torch.no_grad()(api.decode)
@@ -127,7 +175,8 @@ def serve(arch: str, reduced: bool = True, batch: int = 4,
     dt = time.perf_counter() - t0
     toks = torch.stack(out, dim=1)
     n_steps = max(1, gen - 1)
-    rec = {"arch": cfg.arch, "reduced": reduced, "device": str(dev),
+    rec = {"arch": cfg.arch, "family": cfg.family, "reduced": reduced,
+           "device": str(dev),
            "params": api.num_params, "batch": b, "prompt_len": s, "gen": gen,
            "prefill_s": prefill_s, "prefill_first_s": times[0],
            "decode_s": dt,
@@ -140,7 +189,7 @@ def serve(arch: str, reduced: bool = True, batch: int = 4,
     print("sample token ids:", rec["sample"], flush=True)
     if check:
         rec["check"] = _check_against_forward(
-            params, cfg, tokens, toks[:, :len(checked) - 1], checked)
+            params, cfg, tokens, toks[:, :len(checked) - 1], checked, extras)
     if dev.type == "cuda":
         rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
         print(f"peak device memory {rec['peak_bytes'] / 2**30:.2f} GiB",
@@ -148,22 +197,36 @@ def serve(arch: str, reduced: bool = True, batch: int = 4,
     return rec
 
 
-@torch.no_grad()
-def _check_against_forward(params, cfg, prompt, fed, checked) -> dict:
-    """Decode-matches-prefill: ``checked[j]`` are the logits after the
-    prompt and ``j`` fed tokens; one forward over prompt + fed gives them
-    all.  Raises when one is beyond atol 0.1 + rtol 0.05."""
-    seq = torch.cat([prompt, fed], 1)
-    # chunks that divide the length (a length such as 1028 would fall back
-    # to the gcd, 4, and thousands of blocks): the same math, blocked
-    # another way
-    n = seq.shape[1]
+def check_config(cfg, n: int):
+    """``cfg`` for one forward over ``n`` tokens: attention chunks that
+    divide ``n`` (a length such as 1028 would fall back to the gcd, 4, and
+    thousands of blocks) and a scan chunk that divides it (the rwkv / Mamba
+    scans need one) -- the same math, blocked another way."""
     parts = -(-n // cfg.attn_chunk_q)
     while n % parts:
         parts += 1
-    cfg = dataclasses.replace(cfg, attn_chunk_q=n // parts,
-                              attn_chunk_kv=n // parts)
-    full = family_module(cfg).forward(params, seq, cfg)
+    return dataclasses.replace(cfg, attn_chunk_q=n // parts,
+                               attn_chunk_kv=n // parts,
+                               seq_chunk=math.gcd(cfg.seq_chunk, n))
+
+
+@torch.no_grad()
+def _check_against_forward(params, cfg, prompt, fed, checked,
+                           extras: dict) -> dict:
+    """Decode-matches-prefill: ``checked[j]`` are the logits after the
+    prompt and ``j`` fed tokens; one forward over prompt + fed (and the
+    same frontend stub) gives them all.  Raises when one is beyond atol
+    0.1 + rtol 0.05."""
+    seq = torch.cat([prompt, fed], 1)
+    fwd_cfg = check_config(cfg, seq.shape[1])
+    mod = family_module(cfg)
+    if cfg.family == "encdec":     # the encoder at the prompt's length
+        memory = mod.encode(params, extras["src_embed"], cfg)
+        full = mod.decoder_forward(params, memory, seq, fwd_cfg)
+    elif cfg.family == "vlm":
+        full = mod.forward(params, seq, extras["img_embed"], fwd_cfg)
+    else:
+        full = mod.forward(params, seq, fwd_cfg)
     if isinstance(full, tuple):          # moe: (logits, aux)
         full = full[0]
     s = prompt.shape[1]

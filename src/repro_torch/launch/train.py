@@ -9,6 +9,8 @@ unless ``--device cpu`` asks for the CPU::
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --reduced --steps 20 --global-batch 4 --seq-len 64
 
+The encdec and vlm families train on the frontend stub's embeddings
+(``pipeline.frontend_stub``, in bf16), as the reference's.
 ``--mesh host`` is the one device; ``single`` and ``multi`` (the
 reference's 2-D production meshes) raise until ``parallel/`` is ported
 (ROADMAP.md, item G3).  Each step's wall time is taken after a device
@@ -27,6 +29,7 @@ import time
 import torch
 
 from ..configs import ARCHS
+from ..configs.base import ShapeConfig
 from ..core.engine import resolve_device
 from ..data import pipeline
 from ..models import build, init_params
@@ -87,9 +90,16 @@ def main(argv=None) -> dict:
     del params
     train_step = steps.make_train_step(api, opt_cfg)
 
+    shape = ShapeConfig("train", args.seq_len, args.global_batch, "train")
+
     def batch_fn(step):
-        b = pipeline.batch_at(data_cfg, step)
-        return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        b = {k: torch.from_numpy(v).to(dev)
+             for k, v in pipeline.batch_at(data_cfg, step).items()}
+        extras = pipeline.frontend_stub(cfg, shape, step)
+        if extras is not None:      # encdec / vlm: the frontend's stub
+            key = "src_embed" if cfg.family == "encdec" else "img_embed"
+            b[key] = torch.from_numpy(extras).to(dev, torch.bfloat16)
+        return b
 
     sup = TrainSupervisor(
         SupervisorConfig(ckpt_dir=args.ckpt_dir,

@@ -105,27 +105,21 @@ def tree_unflatten(like, leaves: list):
 
 
 def unstack(tree, n: int) -> list:
-    """The ``n`` per-layer slices of a stacked tree (leading ``L`` axis).
+    """The ``n`` per-layer slices of a stacked tree (leading ``L`` axis;
+    dicts, NamedTuples and tuples of them alike).
 
     One ``torch.unbind`` a leaf: its backward stacks the ``n`` gradients
     once, where a per-layer index would write a full-size zero tensor a
     layer."""
-    per_leaf = tree_map(lambda t: torch.unbind(t, 0), tree)
-    return [_take(per_leaf, i) for i in range(n)]
-
-
-def _take(tree, i):
-    """Layer ``i`` of a dict tree whose leaves are ``unbind`` tuples."""
-    if isinstance(tree, dict):
-        return {k: _take(v, i) for k, v in tree.items()}
-    return tree[i]
+    per_leaf = [torch.unbind(t, 0) for t in tree_leaves(tree)]
+    return [tree_unflatten(tree, [p[i] for p in per_leaf]) for i in range(n)]
 
 
 # --------------------------------------------------------------------------
 # initialization and counts
 
 def init_from_specs(specs: PyTree, key: torch.Generator,
-                    device=None) -> PyTree:
+                    device=None, finish: Callable = None) -> PyTree:
     """Initialize a parameter tree from its spec tree.
 
     The reference's leaf-name rules: '*norm*', '*scale' and '/g_' -> ones;
@@ -134,7 +128,9 @@ def init_from_specs(specs: PyTree, key: torch.Generator,
     come from ``key`` (a ``torch.Generator``) leaf by leaf in JAX's
     flattening order on the generator's device, and the tree is put on
     ``device`` (default: the generator's device); the draws' bits are the
-    port's own, not ``jax.random``'s.
+    port's own, not ``jax.random``'s.  ``finish(path, leaf)``, when given,
+    maps each leaf as soon as it is drawn (a cast, say), so the float32
+    draws never coexist.
     """
     device = torch.device(device) if device is not None else key.device
 
@@ -150,7 +146,10 @@ def init_from_specs(specs: PyTree, key: torch.Generator,
         torch.nn.init.trunc_normal_(t, 0.0, 1.0, -3.0, 3.0, generator=key)
         return t.mul_(std).to(device=device, dtype=s.dtype)
 
-    leaves = [init_leaf(p, s) for p, s in tree_leaves_with_path(specs)]
+    leaves = []
+    for path, s in tree_leaves_with_path(specs):
+        leaf = init_leaf(path, s)
+        leaves.append(finish(path, leaf) if finish else leaf)
     return tree_unflatten(specs, leaves)
 
 

@@ -19,7 +19,8 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from .attention import KVCache, attention, attn_param_specs
 from .common import (COMPUTE_DTYPE, cast, dense, matmul_f32, rms_norm,
-                     softmax_cross_entropy, spec, swiglu, unstack)
+                     softmax_cross_entropy, spec, swiglu, tree_leaves,
+                     unstack)
 
 
 def layer_param_specs(cfg: ModelConfig, n_layers: int) -> dict:
@@ -71,13 +72,18 @@ def _layer(x: torch.Tensor, lp: dict, cfg: ModelConfig, *,
     return x, new_cache
 
 
-def run_layers(x: torch.Tensor, layers: dict, cfg: ModelConfig, layer_fn):
+def run_layers(x: torch.Tensor, layers, cfg: ModelConfig, layer_fn,
+               remat: bool = None):
     """``layer_fn(h, lp) -> (h, y)`` over the stacked layers (the
-    reference's ``lax.scan``), each layer checkpointed when ``cfg.remat``
-    and autograd records; returns the last ``h`` and the list of ``y``."""
+    reference's ``lax.scan``: ``layers`` is any tree whose leaves share the
+    leading axis, e.g. ``(params, state)``), each layer checkpointed when
+    ``remat`` (default ``cfg.remat``) and autograd records; returns the
+    last ``h`` and the list of ``y``."""
     ys = []
-    remat = cfg.remat and torch.is_grad_enabled()
-    for lp in unstack(layers, cfg.n_layers):
+    remat = (cfg.remat if remat is None else remat) and \
+        torch.is_grad_enabled()
+    n = tree_leaves(layers)[0].shape[0]
+    for lp in unstack(layers, n):
         if remat:
             x, y = checkpoint(layer_fn, x, lp, use_reentrant=False)
         else:

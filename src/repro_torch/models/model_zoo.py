@@ -1,18 +1,16 @@
-"""Unified model API across the families (the port of
+"""Unified model API across the six families (the port of
 ``repro.models.model_zoo``).
 
 ``build(cfg)`` returns a ``ModelAPI`` whose three entry points take a
-``batch`` dict (and a cache for decode), hiding family differences from
-the training loop and the serving loop:
+``batch`` dict (and a cache/state for decode), hiding family differences
+from the training loop and the serving loop:
 
-  train:   batch = {tokens, labels}
-  prefill: batch = {tokens}
-  decode:  batch = {token (B,), pos (an int)} + cache
+  train:   batch = {tokens, labels [, src_embed | img_embed]}
+  prefill: batch = {tokens [, src_embed | img_embed]}
+  decode:  batch = {token (B,), pos (an int)} + cache/state
 
-The port serves the ``dense`` and ``moe`` families; the four others
-(``rwkv``, ``hybrid``, ``encdec``, ``vlm``) raise until they are ported
-(ROADMAP.md, item G2).  ``input_specs`` produces :class:`ParamSpec`
-records for every input of an (arch x shape) cell, allocating nothing.
+``input_specs`` produces :class:`ParamSpec` records for every input of an
+(arch x shape) cell, allocating nothing.
 """
 from __future__ import annotations
 
@@ -21,14 +19,14 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig, ShapeConfig
-from . import dense, moe
+from . import dense, encdec, moe, rwkv, ssm, vlm
 from .common import COMPUTE_DTYPE, count_params, init_from_specs, spec
 
 # Fixed stub lengths for modality frontends at decode time (the
-# reference's constant; used by the encdec family once it is ported).
+# reference's constant).
 ENCDEC_DECODE_SRC_LEN = 4096
-FAMILIES = {"dense": dense, "moe": moe}
-NOT_PORTED = ("encdec", "vlm", "rwkv", "hybrid")
+FAMILIES = {"dense": dense, "moe": moe, "encdec": encdec, "vlm": vlm,
+            "rwkv": rwkv, "hybrid": ssm}
 
 
 class ModelAPI(NamedTuple):
@@ -51,30 +49,44 @@ def _moe_active_params(cfg: ModelConfig, total: int) -> int:
 
 
 def family_module(cfg: ModelConfig):
-    """The module of ``cfg.family`` (``dense`` or ``moe``)."""
-    if cfg.family in NOT_PORTED:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported to repro_torch yet "
-            "(ROADMAP.md, item G2); the port serves 'dense' and 'moe'")
+    """The module of ``cfg.family``."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family}")
     return FAMILIES[cfg.family]
 
 
 def build(cfg: ModelConfig) -> ModelAPI:
+    fam = cfg.family
     mod = family_module(cfg)
+
+    def prefill(p, b):
+        if fam == "encdec":
+            return mod.prefill(p, b["src_embed"], b["tokens"], cfg)
+        if fam == "vlm":
+            return mod.prefill(p, b["tokens"], b["img_embed"], cfg)
+        return mod.prefill(p, b["tokens"], cfg)
+
+    def cache_specs(bs, sl):
+        if fam == "encdec":
+            return mod.cache_specs(cfg, bs, sl, ENCDEC_DECODE_SRC_LEN)
+        if fam == "rwkv":
+            return mod.state_specs(cfg, bs)
+        if fam == "hybrid":
+            return mod.state_specs(cfg, bs, sl)
+        return mod.cache_specs(cfg, bs, sl)
+
     specs = mod.param_specs(cfg)
     total = count_params(specs)
     return ModelAPI(
         cfg, specs,
         loss=lambda p, b: mod.loss_fn(p, b, cfg),
-        prefill=lambda p, b: mod.prefill(p, b["tokens"], cfg),
+        prefill=prefill,
         decode=lambda p, b, c: mod.decode_step(p, b["token"], b["pos"], c,
                                                cfg),
-        cache_specs=lambda bs, sl: mod.cache_specs(cfg, bs, sl),
+        cache_specs=cache_specs,
         num_params=total,
         num_active_params=(_moe_active_params(cfg, total)
-                           if cfg.family == "moe" else total))
+                           if fam == "moe" else total))
 
 
 def init_params(api: ModelAPI, key: torch.Generator, device=None):

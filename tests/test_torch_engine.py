@@ -257,9 +257,9 @@ def test_halved_weights_match_reference(halved_runs, backend, fused):
 def test_imports_neither_jax_nor_reference():
     """The port (its application layer, session, mesh, exchange plans,
     sharded layout, distributed PageRank, placement, the cluster runtime
-    and its worker, the LLM configs, models, optimizer, data, train steps
-    and both LLM launchers too), its examples and chip_smoke.py load
-    without JAX, ``repro`` or msgpack."""
+    and its worker, the LLM configs, the six model families, optimizer,
+    data, train steps and both LLM launchers too), its examples and
+    chip_smoke.py load without JAX, ``repro`` or msgpack."""
     code = (
         "import sys; sys.path.insert(0, 'src'); sys.path.insert(0, '.')\n"
         "sys.path.insert(0, 'examples')\n"
@@ -278,7 +278,9 @@ def test_imports_neither_jax_nor_reference():
         "import repro_torch.models, repro_torch.optim.adamw\n"
         "import repro_torch.optim.compression, repro_torch.data.pipeline\n"
         "import repro_torch.train, repro_torch.launch.serve_llm\n"
-        "import repro_torch.launch.train\n"
+        "import repro_torch.launch.train, repro_torch.models.rwkv\n"
+        "import repro_torch.models.ssm, repro_torch.models.encdec\n"
+        "import repro_torch.models.vlm\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'repro', 'msgpack')]\n"
         "assert not bad, bad\n")

@@ -1150,11 +1150,16 @@ def test_flash_attention_on_card(cuda):
                                    rtol=2e-2)
 
 
-@pytest.mark.parametrize("arch", ["stablelm-1.6b", "qwen3-moe-235b-a22b"])
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "qwen3-moe-235b-a22b",
+                                  "rwkv6-1.6b", "zamba2-7b",
+                                  "seamless-m4t-large-v2",
+                                  "llama-3.2-vision-11b"])
 def test_reduced_train_steps_on_card(cuda, arch):
     """Three train steps of a reduced model on the card from the CPU run's
-    weights: the same losses (rtol 1e-3) and grad norms (rtol 2e-2)."""
+    weights (encdec and vlm on the frontend stub): the same losses (rtol
+    1e-3) and grad norms (rtol 2e-2)."""
     from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import pipeline
     from repro_torch.models import build, common, init_params
     from repro_torch.optim import adamw
@@ -1174,6 +1179,11 @@ def test_reduced_train_steps_on_card(cuda, arch):
         for i in range(3):
             b = {k: torch.from_numpy(v).to(dev)
                  for k, v in pipeline.batch_at(data, i).items()}
+            stub = pipeline.frontend_stub(
+                cfg, ShapeConfig("train", 64, 4, "train"), i)
+            if stub is not None:
+                key = "src_embed" if cfg.family == "encdec" else "img_embed"
+                b[key] = torch.from_numpy(stub).to(dev, torch.bfloat16)
             state, st = step(state, b)
             out.append((float(st["loss"]), float(st["grad_norm"])))
         return out
@@ -1181,3 +1191,85 @@ def test_reduced_train_steps_on_card(cuda, arch):
     for (lg, gg), (lc, gc) in zip(run(cuda), run(torch.device("cpu"))):
         assert lg == pytest.approx(lc, rel=1e-3)
         assert gg == pytest.approx(gc, rel=2e-2)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-7b",
+                                  "seamless-m4t-large-v2",
+                                  "llama-3.2-vision-11b"])
+def test_reduced_family_on_card(cuda, arch):
+    """A reduced rwkv / hybrid / encdec / vlm model on the card against
+    the CPU on the same weights and inputs: the loss (rtol 1e-3), the
+    prefill logits, four decode steps and the final cache or state (atol
+    5e-2)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.serve_llm import frontend_inputs, grow_cache
+    from repro_torch.models import build, common, init_params
+    common.use_reference_numerics()
+    cfg = ARCHS[arch].reduced()
+    api = build(cfg)
+    params = init_params(api, torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (2, 32), generator=gen)
+    labels = torch.randint(0, cfg.vocab, (2, 32), generator=gen)
+    extras = frontend_inputs(cfg, 2, 24, gen, "cpu")
+
+    def run(dev):
+        p = common.tree_map(lambda t: t.to(dev), params)
+        ex = {k: v.to(dev) for k, v in extras.items()}
+        tok = tokens.to(dev)
+        with torch.no_grad():
+            loss = float(api.loss(p, {"tokens": tok,
+                                      "labels": labels.to(dev), **ex}))
+            logits, cache = api.prefill(p, {"tokens": tok[:, :16], **ex})
+            cache = grow_cache(cache, 20, cfg.family)
+            outs = [logits.float().cpu()]
+            for i in range(16, 20):
+                lg, cache = api.decode(p, {"token": tok[:, i], "pos": i},
+                                       cache)
+                outs.append(lg.float().cpu())
+        return loss, outs, [c.cpu() for c in common.tree_leaves(cache)]
+
+    (lc, oc, cc), (lg, og, cg) = run(torch.device("cpu")), run(cuda)
+    assert lg == pytest.approx(lc, rel=1e-3)
+    for a, b in zip(og + cg, oc + cc):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a.float().numpy(), b.float().numpy(),
+                                   atol=5e-2)
+
+
+@pytest.mark.parametrize("scan", ["wkv", "ssd"])
+def test_chunk_scans_on_card(cuda, scan):
+    """``wkv_chunked`` / ``ssd_chunked`` (each chunk step checkpointed) on
+    the card against the CPU: outputs, states and gradients at rwkv6's
+    head shape (64) and zamba2's chunk (128)."""
+    from repro_torch.models import rwkv, ssm
+    gen = torch.Generator().manual_seed(3)
+    if scan == "wkv":
+        b, s, h, hd = 2, 128, 4, 64
+        args = [torch.randn(b, s, h, hd, generator=gen) * 0.5
+                for _ in range(3)]
+        args += [-torch.exp(torch.randn(b, s, h, hd, generator=gen) * 0.5
+                            - 1),
+                 torch.randn(h, hd, generator=gen) * 0.3,
+                 torch.randn(b, h, hd, hd, generator=gen) * 0.1]
+        fn, chunk = rwkv.wkv_chunked, 32
+    else:
+        b, s, h, hd, n = 2, 256, 4, 64, 64
+        args = [torch.randn(b, s, h, hd, generator=gen) * 0.5,
+                torch.randn(b, s, n, generator=gen) * 0.5,
+                torch.randn(b, s, n, generator=gen) * 0.5,
+                torch.rand(b, s, h, generator=gen) * 0.5 + 0.01,
+                -torch.exp(torch.randn(h, generator=gen) * 0.3),
+                torch.randn(b, h, n, hd, generator=gen) * 0.1]
+        fn, chunk = ssm.ssd_chunked, 128
+
+    def run(dev):
+        ts = [a.to(dev).requires_grad_(True) for a in args]
+        out, st = fn(*ts, chunk)
+        grads = torch.autograd.grad(out.float().square().sum()
+                                    + st.square().sum(), ts)
+        return [out.detach().float().cpu(), st.detach().cpu()] + [
+            g.cpu() for g in grads]
+
+    for a, b in zip(run(cuda), run(torch.device("cpu"))):
+        assert _rel(a, b) < 1e-2

@@ -6,8 +6,8 @@ reference's init carried across with ``convert.params_from_reference``)
 go through both packages:
 
 * configs, shapes and the runnable-cell rule equal field for field;
-  parameter counts and spec trees of the six dense / MoE architectures
-  equal at full size with nothing allocated; the init's leaf-name rules;
+  parameter counts and spec trees of all ten architectures equal at full
+  size with nothing allocated; the init's leaf-name rules;
 * the shared ops (``dense`` without a bias is bit-identical: both round
   a float32 accumulation once), flash attention forward and grads
   (``tests/test_models_numerics.py``'s cases, port against the
@@ -17,8 +17,10 @@ go through both packages:
   decode logits (atol 5e-2) of reduced stablelm-1.6b, qwen2.5-14b (qkv
   bias), kimi-k2 (shared expert) and qwen3-moe, under both MoE
   dispatches, ``ce_chunked`` and ``remat`` on and off;
-* the port's own decode-matches-prefill and arch smoke, mirroring
-  ``tests/test_models_numerics.py`` and ``tests/test_models_smoke.py``.
+* the port's own decode-matches-prefill and arch smoke (every
+  architecture), mirroring ``tests/test_models_numerics.py`` and
+  ``tests/test_models_smoke.py``.  The rwkv, hybrid, encdec and vlm
+  families' parity tests are ``tests/test_torch_families*.py``.
 """
 import dataclasses
 
@@ -40,7 +42,7 @@ from repro_torch.models import (attention, build, common, dense,
                                 init_params, input_specs, moe)
 from repro_torch.models.common import ParamSpec, tree_leaves_with_path
 
-PORTED = sorted(a for a, c in ARCHS.items() if c.family in ("dense", "moe"))
+PORTED = sorted(ARCHS)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -114,10 +116,17 @@ def test_param_counts_full_configs(arch):
 
 
 def test_unported_families_raise():
-    for arch, cfg in ARCHS.items():
-        if cfg.family not in ("dense", "moe"):
-            with pytest.raises(NotImplementedError, match="G2"):
-                build(cfg)
+    """Every family of the configs is ported; an unknown one raises
+    ``ValueError``, as the reference's ``build`` does."""
+    from repro_torch.models.model_zoo import FAMILIES, family_module
+    assert sorted({c.family for c in ARCHS.values()}) == sorted(FAMILIES)
+    cfg = dataclasses.replace(ARCHS["stablelm-1.6b"], family="retnet")
+    for call in (build, family_module):
+        with pytest.raises(ValueError, match="unknown family retnet"):
+            call(cfg)
+    with pytest.raises(ValueError, match="unknown family retnet"):
+        ref_build(dataclasses.replace(REF_ARCHS["stablelm-1.6b"],
+                                      family="retnet"))
 
 
 @pytest.mark.parametrize("arch", ["stablelm-1.6b", "qwen2.5-14b",
@@ -394,8 +403,8 @@ def test_decode_matches_prefill(arch):
 @pytest.mark.parametrize("arch", PORTED)
 def test_arch_smoke(arch):
     """The reference's ``test_arch_smoke`` for the port: finite loss and
-    grads, prefill logits of the padded vocab, one decode step against a
-    fresh cache keeps the cache's shapes."""
+    grads, prefill logits of the padded vocab (the vlm's is unpadded),
+    one decode step against a fresh cache or state keeps its shapes."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.train.steps import value_and_grad
     cfg = ARCHS[arch].reduced()
@@ -404,26 +413,32 @@ def test_arch_smoke(arch):
     specs, _ = input_specs(cfg, ShapeConfig("smoke_train", 32, 2, "train"))
     gen = torch.Generator().manual_seed(1)
     batch = {k: torch.randint(0, cfg.vocab, s.shape, generator=gen,
-                              dtype=torch.int32) for k, s in specs.items()}
+                              dtype=torch.int32) if s.dtype == torch.int32
+             else torch.randn(s.shape, generator=gen).to(s.dtype)
+             for k, s in specs.items()}
     loss, grads = value_and_grad(api.loss, params, batch)
     assert np.isfinite(float(loss))
     gnorm = sum(float((g.float() ** 2).sum())
                 for _, g in tree_leaves_with_path(grads))
     assert np.isfinite(gnorm) and gnorm > 0
+    vocab = cfg.vocab if cfg.family == "vlm" else cfg.vocab_padded
     with torch.no_grad():
-        logits, _ = api.prefill(params, {"tokens": batch["tokens"]})
-    assert logits.shape == (2, 1, cfg.vocab_padded)
+        logits, _ = api.prefill(params, {k: v for k, v in batch.items()
+                                         if k != "labels"})
+    assert logits.shape == (2, 1, vocab)
     assert torch.isfinite(logits.float()).all()
     _, cspecs = input_specs(cfg, ShapeConfig("smoke_decode", 32, 2,
                                              "decode"))
-    cache = attention.KVCache(*(torch.zeros(s.shape, dtype=s.dtype)
-                                for s in cspecs))
+    cache = common.tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype),
+                            cspecs)
     with torch.no_grad():
         dl, new = api.decode(params, {"token": batch["tokens"][:, 0],
                                       "pos": 3}, cache)
-    assert dl.shape == (2, 1, cfg.vocab_padded)
+    assert dl.shape == (2, 1, vocab)
     assert torch.isfinite(dl.float()).all()
-    assert [c.shape for c in new] == [c.shape for c in cache]
+    assert type(new) is type(cache)
+    assert [c.shape for c in common.tree_leaves(new)] == [
+        c.shape for c in common.tree_leaves(cache)]
 
 
 @pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "qwen3-moe-235b-a22b"])

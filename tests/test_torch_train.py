@@ -12,8 +12,10 @@ reference's on the CPU.
   (``tests/test_train_loop.py``), the supervisor's crash restart
   (``tests/test_runtime.py``), a reference ``TrainState`` checkpoint
   restored by ``repro_torch.ckpt`` continuing the reference's run;
-* ``launch.serve_llm``, ``launch.train`` and ``examples/torch_train_lm.py``
-  small on ``--device cpu``; every entry point raises without a card.
+* ``launch.serve_llm`` (every family, with ``--check``), its serving
+  copy drawn leaf by leaf, ``launch.train`` (encdec and vlm on the
+  frontend stub too) and ``examples/torch_train_lm.py`` small on
+  ``--device cpu``; every entry point raises without a card.
 """
 import dataclasses
 import os
@@ -43,6 +45,7 @@ from repro_torch.convert import (params_from_reference,
 from repro_torch.data import pipeline
 from repro_torch.launch import serve_llm, train
 from repro_torch.models import build
+from repro_torch.models import common
 from repro_torch.models.common import tree_leaves_with_path
 from repro_torch.optim import adamw, compression
 from repro_torch.runtime import SupervisorConfig, TrainSupervisor
@@ -416,6 +419,98 @@ def test_serve_llm_small_on_cpu(capsys):
     assert "prefill 2x16" in out and "decoded 5 steps x batch 2" in out
     assert serve_llm.parser().parse_args([]).reduced is True
     assert serve_llm.parser().parse_args(["--no-reduced"]).reduced is False
+
+
+G2_ARCHS = ["llama-3.2-vision-11b", "rwkv6-1.6b", "seamless-m4t-large-v2",
+            "zamba2-7b"]
+
+
+@pytest.mark.parametrize("arch", G2_ARCHS)
+def test_serve_llm_families_on_cpu(arch, capsys):
+    """``serve_llm`` for the rwkv, hybrid, encdec and vlm families: the
+    frontend stub drawn, the cache grown family by family, decode held to
+    one forward over prompt + fed tokens (the scans' chunk cut to divide
+    that length: 16 + 4 = 20 tokens against a chunk of 16)."""
+    rec = serve_llm.main(["--device", "cpu", "--arch", arch, "--batch", "2",
+                          "--prompt-len", "16", "--gen", "6", "--check",
+                          "4"])
+    assert rec["family"] == ARCHS[arch].family
+    assert rec["check"]["positions"] == 5
+    assert rec["check"]["max_abs_diff"] < 0.1
+    assert len(rec["sample"]) == 6
+    assert "within atol 0.1 + rtol 0.05: True" in capsys.readouterr().out
+
+
+def _tweaked(params):
+    """Every leaf moved off its init's ones and zeros, so a leaf the models
+    read in float32 would round if the serving copy cast it."""
+    gen = torch.Generator().manual_seed(3)
+    return common.tree_map(lambda p: p + 0.3 * torch.randn(
+        p.shape, generator=gen), params)
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_serving_params_drawn_leaf_by_leaf(arch):
+    """``init_serving_params`` (each leaf cast as it is drawn) is
+    ``serving_params(init_params(...))`` bit for bit, and the serving copy
+    gives the float32 params' prefill and decode logits bit for bit."""
+    from repro_torch.models import init_params
+    cfg = ARCHS[arch].reduced()
+    if cfg.family == "vlm":
+        # 8 groups: a tanh gate rounded to bf16 before its tanh changes
+        # the product's bits for ~20% of gate values, so 16 gates show it
+        cfg = dataclasses.replace(cfg, n_layers=16)
+    api = build(cfg)
+    a = serve_llm.init_serving_params(api, torch.Generator().manual_seed(4))
+    b = serve_llm.serving_params(init_params(
+        api, torch.Generator().manual_seed(4)))
+    for (pa, x), (pb, y) in zip(tree_leaves_with_path(a),
+                                tree_leaves_with_path(b)):
+        assert pa == pb and x.dtype == y.dtype and torch.equal(x, y), pa
+    params = _tweaked(init_params(api, torch.Generator().manual_seed(0)))
+    served = serve_llm.serving_params(params)
+    assert any(p.dtype == torch.bfloat16 for p in common.tree_leaves(served))
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (2, 16), generator=gen)
+    batch = {"tokens": tokens, **serve_llm.frontend_inputs(
+        cfg, 2, 16, gen, "cpu")}
+    with torch.no_grad():
+        outs = []
+        for p in (params, served):
+            logits, cache = api.prefill(p, batch)
+            cache = serve_llm.grow_cache(cache, 17, cfg.family)
+            step, _ = api.decode(p, {"token": tokens[:, -1], "pos": 16},
+                                 cache)
+            outs.append((logits, step))
+    for x, y in zip(*outs):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2",
+                                  "llama-3.2-vision-11b"])
+def test_train_launcher_frontend_on_cpu(arch, tmp_path):
+    """The launcher trains encdec and vlm on ``frontend_stub``'s embeddings
+    (in bf16), as the reference's; the first loss equals the loss of the
+    launcher's first batch computed here."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import init_params
+    rec = train.main(["--device", "cpu", "--reduced", "--arch", arch,
+                      "--global-batch", "2", "--seq-len", "32", "--steps",
+                      "3", "--ckpt-dir", str(tmp_path)])
+    assert len(rec["loss"]) == 3 and np.isfinite(rec["loss"]).all()
+    cfg = ARCHS[arch].reduced()
+    api = build(cfg)
+    batch = {k: torch.from_numpy(v) for k, v in pipeline.batch_at(
+        pipeline.DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=2),
+        0).items()}
+    stub = pipeline.frontend_stub(cfg, ShapeConfig("train", 32, 2, "train"),
+                                  0)
+    key = "src_embed" if cfg.family == "encdec" else "img_embed"
+    batch[key] = torch.from_numpy(stub).bfloat16()
+    with torch.no_grad():
+        want = float(api.loss(init_params(
+            api, torch.Generator().manual_seed(0)), batch))
+    assert rec["loss"][0] == pytest.approx(want, rel=1e-6)
 
 
 def test_train_launcher_small_on_cpu(tmp_path, capsys):
