@@ -89,7 +89,7 @@ about 128 M directed CSR entries, k = 32):
   (j) continuous partitioning on a mesh (no kernel: the sharded frontier
       runner and the sharded delta merge run on the torch scatter
       backend): (j1) ``open_session`` of the full graph on a one-rank NCCL
-      mesh (torch backend, overlap off, the allgather plan, max_iters 60 as
+      mesh (torch backend, overlap off, the allgather plan, max_iters 40 as
       (g2)) running
       ``partition()``, ``adapt(edge_updates=B1, frontier=True)`` and
       ``adapt(edge_updates=B2)`` -- both adapts on the fast path with no
@@ -161,7 +161,7 @@ about 128 M directed CSR entries, k = 32):
       their chunk scans are torch operations, as the reference's are jnp):
       (n1) ``serve_llm`` serving rwkv6-1.6b, zamba2-7b,
       seamless-m4t-large-v2 and llama-3.2-vision-11b at full width and
-      depth, one child process each (8 prompts of 1024 tokens, 32
+      depth, one child process each (8 prompts of 1024 tokens, 20
       generated, the first 16 decode steps held to one forward), with
       each family's decode byte bound; (n2) ``python -m
       repro_torch.launch.train`` on seamless-m4t-large-v2 (the
@@ -179,6 +179,19 @@ about 128 M directed CSR entries, k = 32):
       (each Mamba2 block and shared-block application on the forward's
       own input): its logits cannot be, bf16 rounding differences grow
       ~1.2-1.5x a Mamba2 block at this init, the reference's too;
+  (o) the 2-D meshes (``repro_torch.parallel``, no kernel of their own):
+      (o1) in a child process, 2 plain ``steps.make_train_step`` steps of
+      stablelm-1.6b on plain tensors at (m2)'s cut and seed, their losses
+      and grad norms held bit for bit to (m2)'s launcher run, which
+      placed its state on a one-rank ``("data", "model")`` mesh through the
+      sharding rules: ms/step and peak bytes of both; (o2) ``python -m
+      repro_torch.launch.dryrun --mesh single --shape train_4k`` for
+      stablelm-1.6b and for qwen3-moe-235b-a22b at its full 94 layers (a
+      depth one card cannot hold), as rank 0 of a fake process group of
+      256 on the (16, 16) production mesh with fake tensors on the card's
+      device (nothing allocated; started with phase (a), CPU work):
+      per-device bytes, dot FLOPs and collective bytes, the per-device
+      bytes x 256 at least the params, grads and AdamW moments;
   (e) each kernel's achieved bytes/s (the bytes its bound counts over its
       measured time) beside its bound, then one JSON line describing each
       kernel.
@@ -206,9 +219,9 @@ PAGERANK_ITERS = 20
 B1_PAIRS, B2_PAIRS = 64_000, 640_000   # 0.1% and 1% of the full graph's edges
 # (g2) / (j1) depth: the full graph's frontier adapt never drains (a Spinner
 # halt is a score stall, not a fixed point), so it runs to max_iters; cut
-# from the default 300 to keep the smoke, phase (n) included, inside its
-# time limit
-SESSION_ITERS = 60
+# from the default 300 to keep the smoke, phases (n) and (o) included,
+# inside its time limit
+SESSION_ITERS = 40
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/spinner_scores.cu"
 PREGEL_SOURCE = "src/repro_torch/kernels/csrc/pregel_combine.cu"
 PREGEL_TPU = "src/repro/kernels/pregel_combine.py"
@@ -1903,7 +1916,7 @@ def phase_placement(dev, smi: str, report: dict) -> None:
 
 SERVE_TENANTS, SERVE_N, SERVE_BURST, SERVE_PAIRS = 8, 200_000, 3, 4_000
 SERVE_ROUNDS = 3                   # timed rounds after one warm round
-POISSON_DURATION, POISSON_RATE = 20.0, 0.25
+POISSON_DURATION, POISSON_RATE = 12.0, 0.25   # (k2), cut from 20 s
 
 
 def _same_result(a, b) -> bool:
@@ -2253,7 +2266,7 @@ def phase_serve_durability(graphs, dev, smi: str, report: dict) -> None:
                                       iterations=want.iterations)
 
 
-CLUSTER_ITERS, CLUSTER_SNAP, CLUSTER_FAULT = 12, 4, 6   # (l1) depth cut
+CLUSTER_ITERS, CLUSTER_SNAP, CLUSTER_FAULT = 8, 4, 6    # (l1) depth cut
 
 
 def _cluster_run(tmp: str, name: str, world: int, job: dict) -> dict:
@@ -3160,7 +3173,7 @@ def phase_llm(dev, smi: str, report: dict) -> None:
 
 G2_ARCHS = ("rwkv6-1.6b", "zamba2-7b", "seamless-m4t-large-v2",
             "llama-3.2-vision-11b")
-G2_BATCH, G2_PROMPT, G2_GEN, G2_CHECK = 8, 1024, 32, 16
+G2_BATCH, G2_PROMPT, G2_GEN, G2_CHECK = 8, 1024, 20, 16
 ENCDEC_ARCH = "seamless-m4t-large-v2"
 G2_TRAIN_STEPS, G2_TRAIN_SEQ, G2_TRAIN_BATCH = 3, 1024, 4
 G2_TRAIN_ARGS = ["--arch", ENCDEC_ARCH, "--steps", str(G2_TRAIN_STEPS),
@@ -3178,7 +3191,7 @@ G2_DECODE_POS, G2_DECODE_LEN = 1056, 1088   # (n5)'s zamba2 decode step
 def phase_g2_serve(smi: str, report: dict) -> None:
     """(n1) ``serve_llm`` for each of the four families at full width and
     depth in its own process: 8 prompts of 1024 tokens (the encdec's
-    source and the vlm's 1600 image tokens from the frontend stub), 32
+    source and the vlm's 1600 image tokens from the frontend stub), 20
     generated, the first 16 decode steps held to one forward; each beside
     its family's decode byte bound."""
     from repro_torch.configs import ARCHS
@@ -3495,6 +3508,146 @@ def phase_g2(dev, smi: str, report: dict) -> None:
           + f") [{smi}]", flush=True)
 
 
+# --------------------------------------------------------------------------
+# (o) the 2-D meshes: the plain step against (m2)'s one-rank mesh, and the
+# dry run on the production mesh
+
+DRY_CELLS = (("stablelm-1.6b", "train_4k"),
+             ("qwen3-moe-235b-a22b", "train_4k"))
+DRY_OUT = Path(__file__).resolve().parent / "build" / "dryrun"
+PLAIN_STEPS = 2
+# (o1): (m2)'s launcher run without the mesh -- the same config, seed,
+# schedule (the launcher's for TRAIN_STEPS steps), data and numerics
+PLAIN_CHILD = """
+import json, sys, time
+import torch
+from repro_torch.configs import ARCHS
+from repro_torch.data import pipeline
+from repro_torch.models import build, init_params
+from repro_torch.models.common import use_reference_numerics
+from repro_torch.optim import adamw
+from repro_torch.train import steps
+
+arch, steps_total, seq, batch, n = sys.argv[1], *map(int, sys.argv[2:6])
+dev = torch.device("cuda", 0)
+use_reference_numerics()
+api = build(ARCHS[arch])
+opt = adamw.AdamWConfig(lr=3e-4, warmup_steps=min(30, steps_total // 10 + 1),
+                        total_steps=steps_total)
+data = pipeline.DataConfig(vocab=api.cfg.vocab, seq_len=seq,
+                           global_batch=batch)
+state = steps.init_train_state(init_params(
+    api, torch.Generator(device=dev).manual_seed(0)))
+step = steps.make_train_step(api, opt)
+torch.cuda.reset_peak_memory_stats(dev)
+rec = {"loss": [], "grad_norm": [], "step_s": []}
+for i in range(n):
+    b = {k: torch.from_numpy(v).to(dev)
+         for k, v in pipeline.batch_at(data, i).items()}
+    t0 = time.perf_counter()
+    state, st = step(state, b)
+    loss, gnorm = float(st["loss"]), float(st["grad_norm"])
+    rec["step_s"].append(time.perf_counter() - t0)
+    rec["loss"].append(loss)
+    rec["grad_norm"].append(gnorm)
+rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+print(json.dumps({"plain": rec}))
+"""
+
+
+def start_dryruns() -> list:
+    """(o2)'s dry runs, one child process a cell, started first: they are
+    host work (fake tensors, a fake process group) that runs beside the
+    graph build and the card's phases."""
+    import os
+    import shutil
+    root = Path(__file__).resolve().parent
+    shutil.rmtree(DRY_OUT, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(root / "src"),
+               OMP_NUM_THREADS="1")
+    return [(arch, shape, time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", "single", "--out", str(DRY_OUT)],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)) for arch, shape in DRY_CELLS]
+
+
+def phase_mesh_plain(smi: str, report: dict) -> None:
+    """(o1) the plain step at (m2)'s cut against (m2)'s one-rank mesh."""
+    import os
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", PLAIN_CHILD, LLM_ARCH, str(TRAIN_STEPS),
+         str(TRAIN_SEQ), str(TRAIN_BATCH), str(PLAIN_STEPS)], cwd=root,
+        env=env, capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        print(out.stderr[-4000:], file=sys.stderr)
+    check(out.returncode == 0, f"(o1) plain child exited {out.returncode}")
+    plain = json.loads(out.stdout.strip().splitlines()[-1])["plain"]
+    mesh = report["llm_train"]
+    n = PLAIN_STEPS
+    same = (plain["loss"] == mesh["loss"][:n]
+            and plain["grad_norm"] == mesh["grad_norm"][:n])
+    print(f"(o1) {LLM_ARCH} {n} steps of {TRAIN_BATCH}x{TRAIN_SEQ} tokens "
+          f"[{smi}]: plain tensors losses {plain['loss']} grad norms "
+          f"{plain['grad_norm']}; (m2)'s launcher on the one-rank mesh "
+          f"{mesh['mesh']} (state placed by rules.param_shardings) losses "
+          f"{mesh['loss'][:n]} grad norms {mesh['grad_norm'][:n]}: "
+          f"{'bit for bit equal' if same else 'DIFFERENT'}", flush=True)
+    check(same, "(o1) the plain step differs from (m2)'s one-rank mesh")
+    mesh_ms = mesh["step_s"][1] * 1e3
+    plain_ms = plain["step_s"][1] * 1e3
+    print(f"(o1) step 2: plain {plain_ms:.1f} ms, one-rank mesh "
+          f"{mesh_ms:.1f} ms ((m2) median after the first "
+          f"{mesh['ms_per_step']:.1f} ms; DTensor's dispatch "
+          f"{mesh_ms - plain_ms:+.1f} ms); first steps "
+          f"{plain['step_s'][0] * 1e3:.1f} / {mesh['step_s'][0] * 1e3:.1f}"
+          f" ms; peak {plain['peak_bytes'] / 2**30:.2f} / "
+          f"{mesh['peak_bytes'] / 2**30:.2f} GiB; child "
+          f"{time.perf_counter() - t0:.1f}s [{smi}]", flush=True)
+    report["mesh_plain"] = dict(plain, mesh_ms=mesh_ms, plain_ms=plain_ms)
+
+
+def phase_mesh_dryrun(procs: list, smi: str, report: dict) -> None:
+    """(o2) the dry runs' records: per device on the (16, 16) mesh."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build
+    res = {}
+    for arch, shape, t0, proc in procs:
+        out, err = proc.communicate(timeout=900)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            print(out[-2000:] + err[-4000:], file=sys.stderr)
+        check(proc.returncode == 0,
+              f"(o2) dry run of {arch} {shape} exited {proc.returncode}")
+        rec = json.loads((DRY_OUT / f"{arch}__{shape}__single.json")
+                         .read_text())
+        mem, an = rec["memory"], rec["analyzed"]
+        per_dev = mem["argument_bytes"] + mem["temp_bytes"]
+        need = build(ARCHS[arch]).num_params * 16   # param, grad, m, v
+        coll = ", ".join(f"{k} {v['count']} x {v['bytes'] / 1e9:.3f} GB"
+                         for k, v in an["collectives"].items())
+        print(f"(o2) dry run {arch} {shape} on {rec['mesh']} "
+              f"({rec['n_devices']} fake ranks, fake {rec['device']} "
+              f"tensors; host) per device: arguments "
+              f"{mem['argument_bytes'] / 2**30:.3f} GiB, temp peak "
+              f"{mem['temp_bytes'] / 2**30:.3f} GiB, outputs "
+              f"{mem['output_bytes'] / 2**30:.3f} GiB; dot FLOPs "
+              f"{an['dot_flops']:.4e}, eager HBM bytes "
+              f"{an['hbm_bytes']:.4e}, collectives {coll} (total "
+              f"{an['collective_bytes']:.4e} B); {an['n_ops']} local ops; "
+              f"trace {rec['trace_s']}s, child {wall:.1f}s [{smi}]",
+              flush=True)
+        check(per_dev * rec["n_devices"] >= need,
+              f"(o2) {arch}: per-device bytes x {rec['n_devices']} "
+              f"{per_dev * rec['n_devices']:.4e} below the params, grads "
+              f"and moments {need:.4e}")
+        res[arch] = rec
+    report["mesh_dryrun"] = res
+
+
 def print_rates(kernels: list) -> None:
     """(e) Each kernel's achieved rate, the bytes its bound counts over its
     measured time, beside the bound; adds ``achieved_bytes_per_s`` (and
@@ -3538,6 +3691,7 @@ def main() -> int:
             ln.strip() for ln in log.splitlines() if "registers" in ln
             or "spill" in ln), flush=True)
 
+    dryruns = start_dryruns()       # (o2): host work beside the card's
     t0 = time.perf_counter()
     graph = generators.watts_strogatz(FULL_N, DEG, BETA, seed=0)
     padded, _ = engine.padded_view(graph, engine.EngineOptions(device=dev))
@@ -3602,6 +3756,12 @@ def main() -> int:
     phase_llm(dev, smi, report)
     torch.cuda.empty_cache()
     phase_g2(dev, smi, report)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_mesh_plain(smi, report)
+    phase_mesh_dryrun(dryruns, smi, report)
+    print(f"(o) phase (o) took {time.perf_counter() - t0:.3f}s (the dry "
+          f"runs started with phase (a)) [{smi}]", flush=True)
 
     tpu = "src/repro/kernels/spinner_scores.py"
     replaces = {"fused_update_csr": f"{tpu}:241",

@@ -15,6 +15,12 @@ mid-save never leaves a partial step; writers sweep crashed half-saves
 older than ``TMP_GC_AGE_S``.  On restore each leaf becomes a numpy
 array, or a torch tensor where the matching leaf of ``like`` is one or
 ``device`` is given (the counterpart of the reference's ``shardings=``).
+
+A tree of DTensors (a state placed on a mesh) is saved whole: each leaf
+is gathered (collective: every rank of the mesh calls ``save``), rank 0
+writes, and every rank waits for the rename.  Restoring into such a tree
+gives every leaf back at its ``like`` leaf's placements, so a restart on
+the same mesh repeats the run bit for bit.
 """
 from __future__ import annotations
 
@@ -91,22 +97,54 @@ def _rebuild(like: PyTree, leaves: list) -> PyTree:
     return leaves.pop(0)
 
 
+def _is_dtensor(x) -> bool:
+    from ..parallel.constraints import is_dtensor
+    return is_dtensor(x)
+
+
 def _host(leaf) -> np.ndarray:
+    if _is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
 
 
+def _writer() -> bool:
+    """Whether this process writes a mesh-placed tree: rank 0 does."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
 def save(directory: str, step: int, tree: PyTree) -> str:
     """Atomically write the checkpoint of ``step``; returns its path."""
     final = os.path.join(directory, f"step_{step:08d}")
+    leaves = _leaves(tree)
+    arrays = ((key, _host(leaf)) for key, leaf in leaves)  # leaf by leaf
+    if not any(_is_dtensor(leaf) for _, leaf in leaves):
+        return _write(directory, final, step, arrays)
+    if _writer():
+        _write(directory, final, step, arrays)
+    else:
+        for _ in arrays:          # every rank takes part in the gathers
+            pass
+    _barrier()
+    return final
+
+
+def _write(directory: str, final: str, step: int, arrays) -> str:
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp, exist_ok=True)
     manifest = {"step": step, "keys": []}
-    for key, leaf in _leaves(tree):
-        arr = _host(leaf)
+    for key, arr in arrays:
         fname = key.replace("/", "__") + ".npy"
         np.save(os.path.join(tmp, fname), arr)
         manifest["keys"].append({"key": key, "file": fname,
@@ -163,7 +201,12 @@ def restore(directory: str, like: PyTree, step: Optional[int] = None,
         if tuple(arr.shape) != want:
             raise ValueError(f"checkpoint leaf {key!r} has shape "
                              f"{arr.shape}, expected {want}")
-        if isinstance(leaf, torch.Tensor) or device is not None:
+        if _is_dtensor(leaf):
+            from torch.distributed.tensor import distribute_tensor
+            arr = distribute_tensor(
+                torch.from_numpy(arr).to(leaf.to_local().device),
+                leaf.device_mesh, leaf.placements, src_data_rank=None)
+        elif isinstance(leaf, torch.Tensor) or device is not None:
             to = device if device is not None else (
                 leaf.device if isinstance(leaf, torch.Tensor) else "cpu")
             arr = torch.from_numpy(arr).to(to)

@@ -7,11 +7,13 @@ assigned architecture is a ``ModelConfig`` in its own module under
 config for CPU smoke tests.  The four assigned input shapes are
 ``ShapeConfig`` entries.
 
-Four fields are GSPMD sharding knobs of the reference and have no effect
-on one device: ``cast_params_before_scan``, ``gather_weights``,
-``residual_sharding`` and ``attn_replicate``.  They stay fields so that
-configs compare equal across the packages; ``repro_torch.models`` reads
-none of them (the 2-D meshes they steer are not ported).
+Four fields are the reference's GSPMD sharding knobs:
+``cast_params_before_scan``, ``gather_weights``, ``residual_sharding`` and
+``attn_replicate``.  On a mesh they mean what they mean there (a bf16 cast
+of the stacked layers, the per-layer weight gather, the residual's pinned
+layout, q/k/v whole over "model"); on one device the last three are
+identities and the first casts the layers to bf16 before the loop rather
+than at each use.
 """
 from __future__ import annotations
 

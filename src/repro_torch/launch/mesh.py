@@ -1,4 +1,5 @@
-"""The vertex-sharding mesh of the sharded engine, over ``torch.distributed``.
+"""Meshes over ``torch.distributed``: the vertex-sharding mesh of the
+sharded engine, and the 2-D meshes of the LLM side.
 
 The reference drives every device from one controller (``shard_map`` over a
 ``jax.sharding.Mesh``).  Here the sharded engine is SPMD: one process per
@@ -15,9 +16,23 @@ without staging it through host memory.
 over the local devices" on a host with one card.  With a group it spans
 the world: launch one process per card (``torch.multiprocessing`` or
 ``torchrun``) and call ``torch.distributed.init_process_group`` first.
+
+The LLM side's meshes are 2-D ``("data", "model")`` (3-D with a leading
+``"pod"``), with the reference's shapes and names.
+``make_production_mesh`` is the TPU pod's ``(16, 16)`` -- or two pods,
+``(2, 16, 16)`` -- over 256 (512) processes of the group; on fewer it
+raises ``ValueError`` naming how many it needs.  On H100 nodes of 8 cards
+joined by NVLink, a 16-wide ``"model"`` axis spans two nodes: its
+tensor-parallel collectives cross the network between them.  The shapes
+are the reference's all the same: ``launch.dryrun`` holds them on a fake
+process group of 256 or 512 ranks.  ``make_host_mesh(model_axis)`` is
+``(world // model_axis, model_axis)`` over whatever group exists (one
+process brings up the one-rank group, as ``make_partition_mesh`` does).
 """
 from __future__ import annotations
 
+import math
+import os
 from typing import Optional, Sequence
 
 import torch
@@ -96,6 +111,70 @@ def make_partition_mesh(num_devices: Optional[int] = None,
     mesh = init_device_mesh(dev_type, (n,), mesh_dim_names=(axis,))
     mesh_group(mesh, axis)         # a CUDA mesh on a gloo group raises now
     return mesh
+
+
+def _ensure_group(dev_type: str) -> None:
+    """The process group: the one already up; else the one ``torchrun``
+    describes in the environment (``WORLD_SIZE`` > 1); else the one-rank
+    group."""
+    if dist.is_initialized():
+        return
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        dist.init_process_group("nccl" if dev_type == "cuda" else "gloo",
+                                init_method="env://")
+        if dev_type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        return
+    _one_rank_group(dev_type)
+
+
+def _grid_mesh(dev_type: str, shape, names) -> DeviceMesh:
+    """A mesh of ``shape`` over the first ``prod(shape)`` ranks of the
+    group (the reference's ``devices[:need]``); ranks past them are not
+    members."""
+    need = math.prod(shape)
+    if need == dist.get_world_size():
+        return init_device_mesh(dev_type, tuple(shape),
+                                mesh_dim_names=tuple(names))
+    return DeviceMesh(dev_type, torch.arange(need).reshape(shape),
+                      mesh_dim_names=tuple(names))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None
+                         ) -> DeviceMesh:
+    """The production mesh: ``(16, 16)`` over ``("data", "model")``, or
+    ``(2, 16, 16)`` over ``("pod", "data", "model")``, spanning the first
+    256 (512) processes of the group.  Raises ``ValueError`` on fewer
+    (without a group a process is a world of one)."""
+    from ..core.engine import resolve_device   # lazy: engine imports us
+    dev_type = resolve_device(device).type
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    need = math.prod(shape)
+    if not dist.is_initialized() and int(os.environ.get("WORLD_SIZE",
+                                                        "1")) > 1:
+        _ensure_group(dev_type)
+    have = dist.get_world_size() if dist.is_initialized() else 1
+    if have < need:    # not an assert: must survive python -O
+        raise ValueError(
+            f"need {need} devices, have {have}; start {need} processes, or "
+            f"a fake process group of world size {need} "
+            "(python -m repro_torch.launch.dryrun)")
+    return _grid_mesh(dev_type, shape, names)
+
+
+def make_host_mesh(model_axis: int = 1, device=None) -> DeviceMesh:
+    """``(world // model_axis, model_axis)`` over ``("data", "model")``
+    (tests and small runs) over the process group: the one up, the one
+    ``torchrun`` describes, or else the one-rank group."""
+    from ..core.engine import resolve_device
+    dev_type = resolve_device(device).type
+    _ensure_group(dev_type)
+    data = dist.get_world_size() // model_axis
+    if data < 1:
+        raise ValueError(f"need {model_axis} devices for a model axis of "
+                         f"{model_axis}, have {dist.get_world_size()}")
+    return _grid_mesh(dev_type, (data, model_axis), ("data", "model"))
 
 
 def mesh_size(mesh: DeviceMesh, axis: str = "data") -> int:

@@ -1,8 +1,11 @@
-"""Training driver (the port of ``repro.launch.train``) on one device.
+"""Training launcher (the port of ``repro.launch.train``).
 
-Runs the supervised loop -- atomic checkpoints, crash-restart, straggler
-flagging -- on the port's ``TrainSupervisor``.  It runs on the CUDA card
-unless ``--device cpu`` asks for the CPU::
+Builds the requested mesh, places the train state by the sharding rules
+(``parallel.rules.param_shardings``; the batch by ``batch_shardings``)
+and runs the supervised loop -- atomic checkpoints, crash-restart,
+straggler flagging -- on the port's ``TrainSupervisor``, each step under
+the mesh (``parallel.constraints.mesh_context``).  It runs on the CUDA
+card unless ``--device cpu`` asks for the CPU::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \\
         --steps 4 --seq-len 4096 --global-batch 4
@@ -11,12 +14,16 @@ unless ``--device cpu`` asks for the CPU::
 
 The encdec and vlm families train on the frontend stub's embeddings
 (``pipeline.frontend_stub``, in bf16), as the reference's.
-``--mesh host`` is the one device; ``single`` and ``multi`` (the
-reference's 2-D production meshes) raise until ``parallel/`` is ported
-(ROADMAP.md, item G3).  Each step's wall time is taken after a device
-synchronize; the last line of the output is a JSON record of the run
-(step times, losses, tokens/s, peak device memory, the checkpoints'
-save seconds and size).
+``--mesh host`` is ``make_host_mesh()``: ``(world, 1)`` over the process
+group, ``(1, 1)`` for one process.  ``single`` and ``multi`` are the
+production meshes (``(16, 16)`` and ``(2, 16, 16)``), which need 256 and
+512 processes (one per card, the group initialised by the caller, e.g.
+``torchrun``) and raise ``ValueError`` on fewer.  Every rank draws the
+same parameters from the seed, leaf by leaf, and keeps its pieces of
+each.  Each step's
+wall time is taken after a device synchronize; the last line of the
+output is a JSON record of the run (the mesh's shape, step times, losses,
+tokens/s, peak device memory, the checkpoints' save seconds and size).
 """
 from __future__ import annotations
 
@@ -32,16 +39,24 @@ from ..configs import ARCHS
 from ..configs.base import ShapeConfig
 from ..core.engine import resolve_device
 from ..data import pipeline
-from ..models import build, init_params
-from ..models.common import use_reference_numerics
+from ..models import build
+from ..models.common import (init_from_specs, tree_leaves_with_path,
+                             use_reference_numerics)
 from ..optim import adamw
+from ..parallel import rules
+from ..parallel.constraints import is_dtensor, mesh_context
 from ..runtime import SupervisorConfig, TrainSupervisor
 from ..train import steps
+from .mesh import make_host_mesh, make_production_mesh
 
 
 def _dir_bytes(path: str) -> int:
     return sum(os.path.getsize(os.path.join(path, f))
                for f in os.listdir(path))
+
+
+def _scalar(x) -> float:
+    return float(x.full_tensor() if is_dtensor(x) else x)
 
 
 def main(argv=None) -> dict:
@@ -63,12 +78,10 @@ def main(argv=None) -> dict:
                     help="default: the CUDA card; 'cpu' runs on the CPU")
     args = ap.parse_args(argv)
 
-    if args.mesh != "host":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the 2-D production meshes need "
-            "repro_torch.parallel, not ported yet (ROADMAP.md, item G3); "
-            "--mesh host runs on one device")
     dev = resolve_device(args.device)
+    mesh = (make_host_mesh(device=args.device) if args.mesh == "host" else
+            make_production_mesh(multi_pod=args.mesh == "multi",
+                                 device=args.device))
     use_reference_numerics()
     cfg = ARCHS[args.arch]
     if args.reduced:
@@ -78,14 +91,21 @@ def main(argv=None) -> dict:
     api = build(cfg)
     print(f"arch={cfg.arch} params={api.num_params / 1e6:.1f}M "
           f"(active {api.num_active_params / 1e6:.1f}M)", flush=True)
-    print(f"mesh: {{'data': 1, 'model': 1}} on {dev}", flush=True)
+    mesh_shape = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    print(f"mesh: {mesh_shape} on {dev}", flush=True)
 
     opt_cfg = adamw.AdamWConfig(lr=args.lr, warmup_steps=min(
         30, args.steps // 10 + 1), total_steps=args.steps)
     data_cfg = pipeline.DataConfig(vocab=cfg.vocab, seq_len=args.seq_len,
                                    global_batch=args.global_batch)
 
-    params = init_params(api, torch.Generator(device=dev).manual_seed(0))
+    # drawn leaf by leaf, each placed at once: a rank holds its pieces and
+    # one whole leaf at most
+    p_sh = dict(tree_leaves_with_path(rules.param_shardings(api.param_specs,
+                                                            mesh)))
+    params = init_from_specs(
+        api.param_specs, torch.Generator(device=dev).manual_seed(0),
+        finish=lambda path, leaf: rules.place(leaf, p_sh[path]))
     state = steps.init_train_state(params)
     del params
     train_step = steps.make_train_step(api, opt_cfg)
@@ -99,7 +119,7 @@ def main(argv=None) -> dict:
         if extras is not None:      # encdec / vlm: the frontend's stub
             key = "src_embed" if cfg.family == "encdec" else "img_embed"
             b[key] = torch.from_numpy(extras).to(dev, torch.bfloat16)
-        return b
+        return rules.shard_tree(b, rules.batch_shardings(b, mesh))
 
     sup = TrainSupervisor(
         SupervisorConfig(ckpt_dir=args.ckpt_dir,
@@ -115,7 +135,7 @@ def main(argv=None) -> dict:
     def logged_step(st, batch):
         t_step = time.perf_counter()
         st, stats = train_step(st, batch)
-        loss, gnorm = float(stats["loss"]), float(stats["grad_norm"])
+        loss, gnorm = _scalar(stats["loss"]), _scalar(stats["grad_norm"])
         log["step_s"].append(time.perf_counter() - t_step)
         log["loss"].append(loss)
         log["grad_norm"].append(gnorm)
@@ -125,13 +145,14 @@ def main(argv=None) -> dict:
                   f"({time.time() - t0:.0f}s)", flush=True)
         return st, stats
 
-    sup.run(logged_step, batch_fn, args.steps)
+    with mesh_context(mesh):
+        sup.run(logged_step, batch_fn, args.steps)
     if sup.flagged_steps:
         print(f"straggler steps flagged: {sup.flagged_steps}")
     tokens = args.global_batch * args.seq_len
     timed = log["step_s"][1:] or log["step_s"]
     rec = {"arch": cfg.arch, "reduced": args.reduced, "device": str(dev),
-           "params": api.num_params, "steps": args.steps,
+           "mesh": mesh_shape, "params": api.num_params, "steps": args.steps,
            "start_step": sup.start_step, "tokens_per_step": tokens,
            **log, "saves": sup.saves}
     if timed:

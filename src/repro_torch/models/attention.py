@@ -15,6 +15,15 @@ reference's update by it leaves the accumulators' bits unchanged.
 The query heads of one KV head are the G rows of a (G * chunk_q) block,
 so one product covers a KV head's group; dk and dv sum the group's
 contributions in that product, in float32.
+
+On a mesh, flash attention is a local map: every (batch row, head) is
+independent, so q, k and v are redistributed to the batch over the data
+axes and the KV heads over "model" where it divides them -- else the
+query heads, each rank reading its groups' KV heads from k and v whole on
+"model" -- unless ``replicate_heads`` (the reference's ``attn_replicate``)
+keeps the heads whole on every rank; each rank runs :class:`_Flash` on its
+own rows and heads.  Its block loops and in-place accumulators have no
+DTensor strategy; on one device the local map is the identity.
 """
 from __future__ import annotations
 
@@ -23,6 +32,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..parallel.constraints import (BATCH, constrain, is_dtensor, local_map,
+                                    redistribute, split_heads)
 from .common import (COMPUTE_DTYPE, apply_rope, cast, dense, matmul_f32,
                      rope_angles, spec)
 
@@ -32,11 +43,6 @@ NEG_INF = -1e30
 class KVCache(NamedTuple):
     k: torch.Tensor          # (B, S_max, KV, hd)
     v: torch.Tensor          # (B, S_max, KV, hd)
-
-
-def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
-    b, s, _ = x.shape
-    return x.reshape(b, s, n, hd)
 
 
 def _q_blocks(x: torch.Tensor, kvh: int, chunk_q: int) -> torch.Tensor:
@@ -194,9 +200,37 @@ class _Flash(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+def _flash_local(q, k, v, replicate_heads, *args):
+    """:class:`_Flash` on each rank's batch rows and heads of DTensor q, k,
+    v (``constraints.local_map``).  "model" splits the KV heads where it
+    divides them; else the query heads, where it divides them into whole
+    groups or whole groups into them, each rank taking the KV heads of its
+    query heads from k and v whole on "model"; else nothing."""
+    h, kvh = q.shape[2], k.shape[2]
+    mesh = q.device_mesh
+    names = tuple(mesh.mesh_dim_names or ())
+    m = mesh.size(names.index("model")) if "model" in names else 1
+    g = h // kvh
+    hq = h // m
+    if replicate_heads or m == 1 or kvh % m == 0 or h % m or (
+            g % hq and hq % g):
+        return local_map(lambda a, b, c: _Flash.apply(a, b, c, *args),
+                         (q, k, v), [(0, 2)] * 3, [(0, 2)], heads=kvh,
+                         replicate_heads=replicate_heads)
+    j = mesh.get_coordinate()[names.index("model")]
+    lo, hi = j * hq // g, ((j + 1) * hq - 1) // g + 1
+
+    def local(a, b, c):
+        return _Flash.apply(a, b[:, :, lo:hi], c[:, :, lo:hi], *args)
+
+    return local_map(local, (q, k, v), [(0, 2), (0, None), (0, None)],
+                     [(0, 2)], heads=h)
+
+
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool, chunk_q: int, chunk_kv: int,
-                      q_offset: int = 0) -> torch.Tensor:
+                      q_offset: int = 0, replicate_heads: bool = False
+                      ) -> torch.Tensor:
     """Flash attention: q (B, Sq, H, hd); k, v (B, Skv, KV, hd) -> bf16
     (B, Sq, H, hd).
 
@@ -208,13 +242,71 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sq, skv = q.shape[1], k.shape[1]
     chunk_q = math.gcd(min(chunk_q, sq), sq)
     chunk_kv = math.gcd(min(chunk_kv, skv), skv)
+    if is_dtensor(q):
+        return _flash_local(q, k, v, replicate_heads, causal, chunk_q,
+                            chunk_kv, q_offset)
     return _Flash.apply(q, k, v, causal, chunk_q, chunk_kv, q_offset)
+
+
+def _seq_slice(buf: torch.Tensor) -> Tuple[int, int]:
+    """(offset, length) of this rank's slice of a DTensor cache's sequence
+    dimension (1): ``torch.chunk``'s split on each mesh dimension that
+    shards it, in mesh order."""
+    from torch.distributed.tensor import Shard
+    mesh, coord = buf.device_mesh, buf.device_mesh.get_coordinate()
+    off, length = 0, buf.shape[1]
+    for j, p in enumerate(buf.placements):
+        if isinstance(p, Shard) and p.dim == 1:
+            piece = -(-length // mesh.size(j))
+            first = min(coord[j] * piece, length)
+            off, length = off + first, min(piece, length - first)
+    return off, length
+
+
+def _decode_attention_mesh(q, cache: KVCache, pos) -> torch.Tensor:
+    """:func:`decode_attention` against a DTensor cache, which
+    ``rules.cache_shardings`` may shard along the sequence: each rank
+    scores its own positions, and the softmax's max and sum and the
+    output's sum are all-reduced over the mesh dimensions that shard the
+    sequence (flash-decode).  q takes the cache's batch and head
+    placements."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh, place = cache.k.device_mesh, cache.k.placements
+    seq = [mesh.get_group(j) for j, p in enumerate(place)
+           if isinstance(p, Shard) and p.dim == 1]
+    qplace = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+              for p in place]
+    ql = redistribute(q, qplace).to_local()
+    kl, vl = cache.k.to_local(), cache.v.to_local()
+    off, _ = _seq_slice(cache.k)
+    b, _, h, hd = ql.shape
+    kvh = kl.shape[2]
+    qh = cast(ql).reshape(b, kvh, h // kvh, hd)
+    s = matmul_f32(qh, cast(kl).permute(0, 2, 3, 1)) * hd ** -0.5
+    mask = off + torch.arange(kl.shape[1], device=kl.device) <= pos
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    for g in seq:
+        m = funcol.all_reduce(m, "max", g)
+    e = torch.exp(s - m)
+    den = e.sum(dim=-1, keepdim=True)
+    for g in seq:
+        den = funcol.all_reduce(den, "sum", g)
+    out = matmul_f32((e / den).to(COMPUTE_DTYPE),
+                     cast(vl).permute(0, 2, 1, 3))
+    for g in seq:
+        out = funcol.all_reduce(out, "sum", g)
+    out = out.reshape(b, 1, h, hd).to(COMPUTE_DTYPE).contiguous()
+    return DTensor.from_local(out, mesh, qplace, run_check=False)
 
 
 def decode_attention(q: torch.Tensor, cache: KVCache, pos) -> torch.Tensor:
     """One-token attention against a cache: q (B, 1, H, hd), pos an int
     (or a 0-d tensor).  Positions > pos are masked; the current token must
     already be written."""
+    if is_dtensor(cache.k):
+        return _decode_attention_mesh(q, cache, pos)
     b, _, h, hd = q.shape
     smax, kvh = cache.k.shape[1], cache.k.shape[2]
     g = h // kvh
@@ -225,6 +317,26 @@ def decode_attention(q: torch.Tensor, cache: KVCache, pos) -> torch.Tensor:
     p = torch.softmax(s, dim=-1).to(COMPUTE_DTYPE)
     out = matmul_f32(p, cast(cache.v).permute(0, 2, 1, 3))   # (B,KV,G,hd)
     return out.reshape(b, 1, h, hd).to(COMPUTE_DTYPE)
+
+
+def _write_cache(buf: torch.Tensor, start: int, val: torch.Tensor) -> None:
+    """``buf[:, start:start + n] = val`` in place (n = ``val.shape[1]``).
+    For a DTensor cache, sharded along the sequence as
+    ``rules.cache_shardings`` may shard it, each rank writes the positions
+    of its own slice: DTensor has no in-place write into a slice of a
+    sharded dimension."""
+    n = val.shape[1]
+    if not is_dtensor(buf):
+        buf[:, start:start + n] = val
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    local = redistribute(val, [Replicate() if isinstance(p, Shard) and
+                               p.dim == 1 else p
+                               for p in buf.placements]).to_local()
+    off, length = _seq_slice(buf)
+    lo, hi = max(start, off), min(start + n, off + length)
+    if lo < hi:
+        buf.to_local()[:, lo - off:hi - off] = local[:, lo - start:hi - start]
 
 
 def _positions(pos, device) -> torch.Tensor:
@@ -253,12 +365,13 @@ def attention(x: torch.Tensor, p: dict, *, n_heads: int, n_kv_heads: int,
       reference's serving loop donates the cache, so its update is in place
       too) and the same cache is returned.
 
-    ``replicate_heads`` is a GSPMD hint of the reference; one device has
-    nothing to replicate over.
+    ``replicate_heads`` (the reference's ``attn_replicate``) gathers q, k
+    and v whole over "model" before the flash blocks; the identity on one
+    device.
     """
     b, sq, _ = x.shape
     kv_src = x if memory is None else memory
-    q = _split_heads(dense(x, p["wq"], p.get("bq")), n_heads, head_dim)
+    q = split_heads(dense(x, p["wq"], p.get("bq")), n_heads)
 
     if cache is not None and memory is not None:
         # cross-attn during decode: cache holds the projected memory
@@ -266,10 +379,8 @@ def attention(x: torch.Tensor, p: dict, *, n_heads: int, n_kv_heads: int,
         return dense(out.reshape(b, sq, -1), p["wo"],
                      bf16_wire=bf16_wire), cache
 
-    k = _split_heads(dense(kv_src, p["wk"], p.get("bk")), n_kv_heads,
-                     head_dim)
-    v = _split_heads(dense(kv_src, p["wv"], p.get("bv")), n_kv_heads,
-                     head_dim)
+    k = split_heads(dense(kv_src, p["wk"], p.get("bk")), n_kv_heads)
+    v = split_heads(dense(kv_src, p["wv"], p.get("bv")), n_kv_heads)
 
     if cache is not None:                          # self-attn decode
         assert pos is not None
@@ -280,8 +391,8 @@ def attention(x: torch.Tensor, p: dict, *, n_heads: int, n_kv_heads: int,
             k = apply_rope(k, angles)
         # dynamic_update_slice's clamp: the slice always fits
         start = min(max(int(pos), 0), cache.k.shape[1] - sq)
-        cache.k[:, start:start + sq] = cast(k)
-        cache.v[:, start:start + sq] = cast(v)
+        _write_cache(cache.k, start, cast(k))
+        _write_cache(cache.v, start, cast(v))
         out = decode_attention(q, cache, pos)
         return dense(out.reshape(b, sq, -1), p["wo"],
                      bf16_wire=bf16_wire), cache
@@ -292,9 +403,19 @@ def attention(x: torch.Tensor, p: dict, *, n_heads: int, n_kv_heads: int,
         q = apply_rope(q, angles)
         k = apply_rope(k, angles)
 
+    if replicate_heads:
+        q = constrain(q, BATCH, None, None, None)
+        k = constrain(k, BATCH, None, None, None)
+        v = constrain(v, BATCH, None, None, None)
     out = chunked_attention(q, k, v, causal=causal, chunk_q=chunk_q,
-                            chunk_kv=chunk_kv)
-    out = dense(out.reshape(b, sq, -1), p["wo"], bf16_wire=bf16_wire)
+                            chunk_kv=chunk_kv,
+                            replicate_heads=replicate_heads)
+    # heads merged per rank on a mesh: the backward then never unflattens
+    # a dimension "model" splits unevenly by heads
+    out = local_map(lambda o: o.reshape(*o.shape[:2], -1), (out,),
+                    [(0, 2)], [(0, 2)], heads=n_heads,
+                    replicate_heads=replicate_heads)
+    out = dense(out, p["wo"], bf16_wire=bf16_wire)
     if return_cache:
         return out, KVCache(cast(k), cast(v))
     return out, None

@@ -23,6 +23,10 @@ from typing import Any, Callable, List, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.constraints import (is_dtensor, parallel_product,
+                                    redistribute,
+                                    register_out_dtype_products, unshard)
+
 PyTree = Any
 COMPUTE_DTYPE = torch.bfloat16
 PARAM_DTYPE = torch.float32
@@ -188,7 +192,8 @@ def _out_dtype_mm(device_type: str) -> bool:
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    if not _out_dtype_mm(a.device.type):
+    if not _out_dtype_mm(a.device.type) or (
+            is_dtensor(a) and not register_out_dtype_products()):
         return torch.matmul(a.float(), b.float())
     if b.dim() == 2:                      # (..., K) @ (K, N): one product
         out = torch.mm(a.reshape(-1, a.shape[-1]), b,
@@ -258,12 +263,16 @@ def dense(x: torch.Tensor, w: torch.Tensor, b=None,
     d_out).  Without a bias the product rounds to bf16 once; with one the
     bias is added in float32 before that rounding.  ``bf16_wire`` (the
     reference's bf16 partial-sum wire format) rounds the product before the
-    bias add."""
-    if b is None:
-        return torch.matmul(cast(x), cast(w))
-    y = (torch.matmul(cast(x), cast(w)).float() if bf16_wire
-         else matmul_f32(x, w))
-    return (y + b.float()).to(COMPUTE_DTYPE)
+    bias add.  On a mesh each rank multiplies its own pieces
+    (``constraints.parallel_product``; on plain tensors, the product)."""
+    def product(x, w, b):
+        if b is None:
+            return torch.matmul(cast(x), cast(w))
+        y = (torch.matmul(cast(x), cast(w)).float() if bf16_wire
+             else matmul_f32(x, w))
+        return (y + b.float()).to(COMPUTE_DTYPE)
+
+    return parallel_product(product, x, w, b)
 
 
 def rope_angles(positions: torch.Tensor, head_dim: int,
@@ -293,10 +302,38 @@ def swiglu(x: torch.Tensor, w1, w3, w2, bf16_wire: bool = False
                  * dense(x, w3), w2, bf16_wire=bf16_wire)
 
 
+def _ce_local(logits: torch.Tensor, labels: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return lse, ll
+
+
+def ce_terms(logits: torch.Tensor, labels: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(logsumexp, label logit) of float32 logits (..., V), per token.
+
+    On a mesh this is a local map: the vocab dimension is gathered whole
+    (DTensor has no strategy for a gather along a sharded dimension), the
+    labels take the logits' batch placements, and each rank computes its
+    own tokens' terms (DTensor's ``gather`` backward would allocate the
+    global-shape zeros on every rank).  On plain tensors, the terms."""
+    if not is_dtensor(logits):
+        return _ce_local(logits.float(), labels)
+    from torch.distributed.tensor import DTensor
+    logits = unshard(logits.float(), -1)
+    place = logits.placements
+    lse, ll = _ce_local(logits.to_local(),
+                        redistribute(labels, place).to_local())
+    shape = tuple(labels.shape)
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    return tuple(DTensor.from_local(t, logits.device_mesh, place,
+                                    run_check=False, shape=shape,
+                                    stride=stride) for t in (lse, ll))
+
+
 def softmax_cross_entropy(logits: torch.Tensor,
                           labels: torch.Tensor) -> torch.Tensor:
     """Mean token CE; logits (..., V) in float32, labels (...) int."""
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    lse, ll = ce_terms(logits, labels)
     return torch.mean(lse - ll)

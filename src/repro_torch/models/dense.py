@@ -3,9 +3,18 @@
 The port of ``repro.models.dense``.  Layers are stacked along a leading
 ``L`` axis, as the reference's; its ``lax.scan`` over them is a Python
 loop over the ``L`` slices, each layer checkpointed
-(``torch.utils.checkpoint``, non-reentrant) when ``cfg.remat``.  The
-reference's sharding hints (``constrain``, ``constrain_residual``,
-``maybe_cast_stack``) are identities on one device and are not ported.
+(``torch.utils.checkpoint``, non-reentrant) when ``cfg.remat``.
+
+The reference's sharding hints stand where it puts them: ``constrain`` at
+the embedding output and the logits, ``constrain_residual`` at block
+boundaries (``residual_sharding``), ``constrain_compute`` under
+``gather_weights`` and ``maybe_cast_stack`` under
+``cast_params_before_scan``.  On a mesh they redistribute DTensors; on
+plain tensors they are identities, as is the one point DTensor needs where
+the reference needs none: ``embed`` gathers the vocab-sharded table whole
+on ``"model"`` before the lookup (DTensor's masked embedding cannot take a
+data-sharded token batch), and ``_ce_chunk`` does the same for a chunk's
+logits before the cross entropy (``common.softmax_cross_entropy``).
 """
 from __future__ import annotations
 
@@ -17,10 +26,11 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..parallel.constraints import BATCH, MODEL, constrain, replicate
 from .attention import KVCache, attention, attn_param_specs
-from .common import (COMPUTE_DTYPE, cast, dense, matmul_f32, rms_norm,
-                     softmax_cross_entropy, spec, swiglu, tree_leaves,
-                     unstack)
+from .common import (COMPUTE_DTYPE, cast, ce_terms, dense, matmul_f32,
+                     rms_norm, softmax_cross_entropy, spec, swiglu,
+                     tree_leaves, tree_map, unstack)
 
 
 def layer_param_specs(cfg: ModelConfig, n_layers: int) -> dict:
@@ -45,18 +55,36 @@ def param_specs(cfg: ModelConfig) -> dict:
     }
 
 
+def constrain_residual(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Pin the residual stream's sharding at block boundaries.
+
+    'replicated': (batch, None, None) -- the canonical Megatron layout.
+    'seq': (batch, model, None) -- Megatron sequence parallelism."""
+    if cfg.residual_sharding == "replicated" and x.ndim == 3:
+        return constrain(x, BATCH, None, None)
+    if cfg.residual_sharding == "seq" and x.ndim == 3:
+        return constrain(x, BATCH, MODEL, None)
+    return x
+
+
 def attend(x: torch.Tensor, lp: dict, cfg: ModelConfig, *,
            causal: bool = True, cache: Optional[KVCache] = None, pos=None,
            return_cache: bool = False):
-    """The attention half of a layer: pre-norm, attention and residual
-    (shared with the MoE family)."""
+    """The attention half of a layer: the weight gather point, pre-norm,
+    attention and residual (shared with the MoE family)."""
+    if cfg.gather_weights:
+        from ..parallel.rules import constrain_compute
+        lp = constrain_compute(lp)
+    x = constrain_residual(x, cfg)
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    if cfg.residual_sharding == "seq":
+        h = constrain(h, BATCH, None, None)   # gather S for attention
     a, new_cache = attention(
         h, lp["attn"], n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.hd, rope_theta=cfg.rope_theta, causal=causal,
         chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv,
         cache=cache, pos=pos, return_cache=return_cache,
-        bf16_wire=cfg.bf16_reduce)
+        bf16_wire=cfg.bf16_reduce, replicate_heads=cfg.attn_replicate)
     return x + a, new_cache
 
 
@@ -66,6 +94,7 @@ def _layer(x: torch.Tensor, lp: dict, cfg: ModelConfig, *,
            ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     x, new_cache = attend(x, lp, cfg, causal=causal, cache=cache, pos=pos,
                           return_cache=return_cache)
+    x = constrain_residual(x, cfg)
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
     x = x + swiglu(h, lp["w1"], lp["w3"], lp["w2"],
                    bf16_wire=cfg.bf16_reduce)
@@ -94,21 +123,24 @@ def run_layers(x: torch.Tensor, layers, cfg: ModelConfig, layer_fn,
 
 def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
     # F.embedding: its backward on the card sums repeated tokens in a
-    # fixed order (a restart repeats a step's bits)
-    return cast(F.embedding(tokens.long(), params["embed"]))
+    # fixed order (a restart repeats a step's bits).  On a mesh the table
+    # is gathered whole on "model" first (identity on a plain tensor).
+    table = replicate(params["embed"], ("model",))
+    return constrain(cast(F.embedding(tokens.long(), table)), BATCH, None,
+                     None)
 
 
 def lm_logits(params: dict, x: torch.Tensor, cfg: ModelConfig
               ) -> torch.Tensor:
+    x = constrain(x, BATCH, None, None)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return dense(x, params["lm_head"])
+    return constrain(dense(x, params["lm_head"]), BATCH, None, MODEL)
 
 
 def _ce_chunk(xb: torch.Tensor, lb: torch.Tensor, head: torch.Tensor
               ) -> torch.Tensor:
-    logits = matmul_f32(xb, head)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, lb.long()[..., None])[..., 0]
+    logits = constrain(matmul_f32(xb, head), BATCH, None, MODEL)
+    lse, ll = ce_terms(logits, lb)
     return torch.sum(lse - ll)
 
 
@@ -123,6 +155,7 @@ def lm_loss(params: dict, x: torch.Tensor, labels: torch.Tensor,
     """
     if not cfg.ce_chunked:
         return softmax_cross_entropy(lm_logits(params, x, cfg), labels)
+    x = constrain(x, BATCH, None, None)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     b, s, _ = x.shape
     chunk = math.gcd(cfg.ce_chunked, s)
@@ -138,6 +171,15 @@ def lm_loss(params: dict, x: torch.Tensor, labels: torch.Tensor,
     return total / (b * s)
 
 
+def maybe_cast_stack(tree, cfg: ModelConfig):
+    """bf16-cast stacked layer params before the layer loop, so FSDP
+    gathers move bf16, not float32 (``cast_params_before_scan``)."""
+    if not cfg.cast_params_before_scan:
+        return tree
+    return tree_map(lambda p: cast(p) if p.dtype == torch.float32
+                    and p.dim() >= 2 else p, tree)
+
+
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig
             ) -> torch.Tensor:
     """Full-sequence causal forward -> (B, S, V) logits (train path)."""
@@ -149,7 +191,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig
 
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     x = embed(params, batch["tokens"])
-    x, _ = run_layers(x, params["layers"], cfg,
+    x, _ = run_layers(x, maybe_cast_stack(params["layers"], cfg), cfg,
                       lambda h, lp: (_layer(h, lp, cfg)[0], None))
     return lm_loss(params, x, batch["labels"], cfg)
 

@@ -7,8 +7,10 @@ layers carry self-attention (causal, cached at decode) and
 cross-attention (keys/values from the encoder output, computed into a
 cache at prefill; no rope).  At decode a layer's cross-attention reads
 its own (B, S_src, KV, hd) slice of the stacked cache, every position of
-it.  The reference's ``constrain`` (a sharding hint) is an identity on
-one device and is not ported (the 2-D meshes are ROADMAP.md item G3).
+it.  The reference's sharding hint stands where it puts it: the source
+embeddings are constrained to the batch axes (``constrain``, the identity
+on a plain tensor); the decoder's come through ``dense.embed`` and
+``dense.lm_logits``.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..configs.base import ModelConfig
+from ..parallel.constraints import BATCH, constrain, split_heads
 from .attention import KVCache, attention, attn_param_specs, decode_attention
 from .common import (COMPUTE_DTYPE, cast, dense, rms_norm,
                      softmax_cross_entropy, spec, swiglu)
@@ -66,7 +69,8 @@ def param_specs(cfg: ModelConfig) -> dict:
 def encode(params, src_embed: torch.Tensor, cfg: ModelConfig
            ) -> torch.Tensor:
     """src_embed: (B, S_src, d) stub frontend output -> encoder states."""
-    x = rms_norm(cast(src_embed), params["enc_in_norm"], cfg.norm_eps)
+    x = constrain(cast(src_embed), BATCH, None, None)
+    x = rms_norm(x, params["enc_in_norm"], cfg.norm_eps)
 
     def body(h, lp):
         a, _ = attention(
@@ -95,7 +99,7 @@ def _dec_layer(x, lp, cfg: ModelConfig, memory=None, self_cache=None,
     h = rms_norm(x, lp["cross_norm"], cfg.norm_eps)
     if cross_cache is not None:          # decode: precomputed memory K/V
         b = h.shape[0]
-        q = dense(h, lp["cross"]["wq"]).reshape(b, 1, cfg.n_heads, cfg.hd)
+        q = split_heads(dense(h, lp["cross"]["wq"]), cfg.n_heads)
         # this layer's (B, S_src, KV, hd) slice: every source position
         o = decode_attention(q, cross_cache, cross_cache.k.shape[1] - 1)
         x = x + dense(o.reshape(b, 1, -1), lp["cross"]["wo"])

@@ -11,6 +11,17 @@ are stacked (L, E, ...).
 Ties: ``jax.lax.top_k`` puts the lower expert first among equal
 probabilities; ``torch.topk`` makes no such promise, so the choices come
 from a stable descending sort.
+
+The reference's sharding hints come through ``dense.attend`` (the weight
+gather point under ``gather_weights``, ``constrain_residual`` before the
+attention, q/k/v replicated under ``attn_replicate``) and
+``dense.maybe_cast_stack`` in ``loss_fn``.  On a mesh each rank
+multiplies its experts' slices of the buffers (``expert_product``,
+experts over "model", buffer slots over the data axes), while the buffer
+positions, the scatter into the buffers and the gather back run on every
+rank over the whole token table (``constraints.local_map``: DTensor has
+no strategy for ``searchsorted`` or for these index writes and gathers);
+on one device they are the same operations on plain tensors.
 """
 from __future__ import annotations
 
@@ -20,11 +31,13 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..parallel.constraints import expert_product, is_dtensor, local_map, \
+    rows
 from .attention import KVCache, attn_param_specs
 from .common import COMPUTE_DTYPE, cast, dense, matmul_f32, rms_norm, spec, \
     swiglu, unstack
 from .dense import (attend, cache_specs, embed, init_cache, lm_logits,
-                    lm_loss, run_layers, stack_caches)
+                    lm_loss, maybe_cast_stack, run_layers, stack_caches)
 
 __all__ = ["layer_param_specs", "param_specs", "moe_ffn", "forward",
            "loss_fn", "cache_specs", "init_cache", "prefill", "decode_step"]
@@ -66,7 +79,12 @@ def _capacity(num_tokens: int, cfg: ModelConfig) -> int:
 
 def _buffer_positions(choice: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """(T, k) position of each (token, choice) in its expert's buffer: its
-    rank among the earlier (token, choice) pairs of the same expert."""
+    rank among the earlier (token, choice) pairs of the same expert.  On a
+    mesh every rank ranks all the choices (``local_map`` over the whole
+    table: DTensor has no strategy for ``searchsorted``)."""
+    if is_dtensor(choice):
+        return local_map(lambda c: _buffer_positions(c, cfg), (choice,),
+                         [None], [None])
     t, k = choice.shape
     if cfg.moe_dispatch == "sort":
         flat_choice = choice.reshape(-1)
@@ -89,7 +107,7 @@ def moe_ffn(x: torch.Tensor, lp: dict, cfg: ModelConfig
     t = b * s
     e, k = cfg.n_experts, cfg.top_k
     cap = _capacity(t, cfg)
-    xt = x.reshape(t, d)
+    xt = rows(x).reshape(t, d)            # rows: a plain batch split
 
     logits = dense(xt, lp["router"]).float()                   # (T, E)
     probs = torch.softmax(logits, dim=-1)
@@ -106,21 +124,36 @@ def moe_ffn(x: torch.Tensor, lp: dict, cfg: ModelConfig
     # Scatter tokens into (E, cap, d) buffers: kept slots are distinct, a
     # dropped token adds 0 into the last slot.
     slot = (choice * cap + pos_c).reshape(-1)
-    src = torch.where(keep.reshape(-1, 1), cast(xt).repeat_interleave(k, 0),
-                      0)
-    buf = torch.zeros(e * cap, d, dtype=COMPUTE_DTYPE, device=x.device)
-    buf = buf.index_put((slot,), src, accumulate=True).reshape(e, cap, d)
 
-    h = matmul_f32(buf, lp["exp_w1"])
-    h3 = matmul_f32(buf, lp["exp_w3"])
+    def dispatch(xt, slot, keep):
+        src = torch.where(keep.reshape(-1, 1),
+                          cast(xt).repeat_interleave(k, 0), 0)
+        buf = torch.zeros(e * cap, d, dtype=COMPUTE_DTYPE, device=xt.device)
+        return buf.index_put((slot,), src, accumulate=True).reshape(e, cap,
+                                                                     d)
+
+    def combine(out_buf, slot, keep, gate_vals):
+        gathered = out_buf.reshape(e * cap, d)[slot].reshape(t, k, d)
+        w = torch.where(keep, gate_vals, 0.0).float()
+        return (gathered.float() * w[..., None]).sum(1)
+
+    # on a mesh both run on the whole token table and buffer (DTensor has
+    # no strategy for these index writes and gathers)
+    whole = [None] * 4
+    buf = local_map(dispatch, (xt, slot, keep), whole[:3], [None])
+
+    # on a mesh each rank multiplies its experts' slices of the buffers
+    h = expert_product(matmul_f32, buf, lp["exp_w1"])
+    h3 = expert_product(matmul_f32, buf, lp["exp_w3"])
     h = (F.silu(h) * h3).to(COMPUTE_DTYPE)
-    out_buf = (torch.matmul(h, cast(lp["exp_w2"])) if cfg.bf16_reduce
-               else matmul_f32(h, lp["exp_w2"]).to(COMPUTE_DTYPE))
+    out_buf = expert_product(
+        (lambda a, w: torch.matmul(a, cast(w))) if cfg.bf16_reduce
+        else (lambda a, w: matmul_f32(a, w).to(COMPUTE_DTYPE)), h,
+        lp["exp_w2"])
 
     # Gather back and combine with gate weights.
-    gathered = out_buf.reshape(e * cap, d)[slot].reshape(t, k, d)
-    w = torch.where(keep, gate_vals, 0.0).float()
-    out = (gathered.float() * w[..., None]).sum(1)
+    out = local_map(combine, (out_buf, slot, keep, gate_vals), whole,
+                    [None])
 
     # Switch-style load-balance aux loss over all k choices.
     me = probs.mean(0)                                         # (E,)
@@ -130,7 +163,7 @@ def moe_ffn(x: torch.Tensor, lp: dict, cfg: ModelConfig
     if cfg.shared_expert_ff:
         out = out + swiglu(xt, lp["shared_w1"], lp["shared_w3"],
                            lp["shared_w2"]).float()
-    return out.reshape(b, s, d).to(COMPUTE_DTYPE), aux
+    return rows(out.reshape(b, s, d).to(COMPUTE_DTYPE)), aux
 
 
 def _layer(x, lp, cfg: ModelConfig, *, cache=None, pos=None,
@@ -161,7 +194,8 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
         h, _, aux = _layer(h, lp, cfg)
         return h, aux
 
-    x, auxs = run_layers(x, params["layers"], cfg, body)
+    x, auxs = run_layers(x, maybe_cast_stack(params["layers"], cfg), cfg,
+                         body)
     return (lm_loss(params, x, batch["labels"], cfg)
             + cfg.router_aux_weight * torch.stack(auxs).mean())
 

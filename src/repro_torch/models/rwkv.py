@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..parallel.constraints import is_dtensor, local_map, split_heads
 from .common import (COMPUTE_DTYPE, dense, rms_norm, softmax_cross_entropy,
                      spec)
 from .dense import embed, lm_logits, run_layers
@@ -125,8 +126,14 @@ def wkv_chunked(r, k, v, lw, u, s0, chunk: int):
     Recurrence: out_t = r_t . (S_{t-1} + diag(u) k_t v_t^T);
                 S_t = diag(exp(lw_t)) S_{t-1} + k_t v_t^T.
     Returns (out (B, S, H, hd) bf16, s_final float32).  ``S`` must be a
-    multiple of ``min(chunk, S)``, as the reference asserts.
+    multiple of ``min(chunk, S)``, as the reference asserts.  On a mesh
+    each rank scans its own batch rows and heads (``local_map``).
     """
+    if is_dtensor(r):
+        return local_map(lambda *a: wkv_chunked(*a, chunk),
+                         (r, k, v, lw, u, s0), [(0, 2)] * 4 + [(None, 0),
+                                                          (0, 1)],
+                         [(0, 2), (0, 1)], heads=r.shape[2])
     b, s, h, hd = r.shape
     chunk = min(chunk, s)
     if s % chunk:
@@ -178,11 +185,11 @@ def time_mix(x, last, lp, cfg: ModelConfig, s0):
     def lerp(mix):
         return x + (xx - x) * mix.to(x.dtype)
 
-    r = dense(lerp(lp["mix_r"]), lp["wr"]).reshape(b, s, h, hd)
-    k = dense(lerp(lp["mix_k"]), lp["wk"]).reshape(b, s, h, hd)
-    v = dense(lerp(lp["mix_v"]), lp["wv"]).reshape(b, s, h, hd)
+    r = split_heads(dense(lerp(lp["mix_r"]), lp["wr"]), h)
+    k = split_heads(dense(lerp(lp["mix_k"]), lp["wk"]), h)
+    v = split_heads(dense(lerp(lp["mix_v"]), lp["wv"]), h)
     g = dense(lerp(lp["mix_g"]), lp["wg"])
-    lw = _log_decay(lerp(lp["mix_w"]), lp).reshape(b, s, h, hd)
+    lw = split_heads(_log_decay(lerp(lp["mix_w"]), lp), h)
 
     out, s_fin = wkv_chunked(r, k, v, lw, lp["bonus_u"], s0, cfg.seq_chunk)
     out = _head_groupnorm(out, lp["gn_scale"], cfg.norm_eps)

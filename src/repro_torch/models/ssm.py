@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..parallel.constraints import is_dtensor, local_map, split_heads
 from .attention import KVCache, attention, attn_param_specs
 from .common import (COMPUTE_DTYPE, dense, rms_norm, softmax_cross_entropy,
                      spec, swiglu, tree_map)
@@ -138,7 +139,13 @@ def ssd_chunked(xh, Bc, Cc, dt, a_log, s0, chunk: int):
     Recurrence: S_t = exp(dt_t a_log) S_{t-1} + dt_t B_t (x) xh_t;
                 y_t = C_t . S_t.
     ``S`` must be a multiple of ``min(chunk, S)``, as the reference asserts.
+    On a mesh each rank scans its own batch rows and heads (``local_map``).
     """
+    if is_dtensor(xh):
+        return local_map(lambda *a: ssd_chunked(*a, chunk),
+                         (xh, Bc, Cc, dt, a_log, s0),
+                         [(0, 2), (0, None), (0, None), (0, 2), (None, 0),
+                          (0, 1)], [(0, 2), (0, 1)], heads=xh.shape[2])
     b, s, h, hd = xh.shape
     chunk = min(chunk, s)
     if s % chunk:
@@ -191,7 +198,7 @@ def mamba_block(x, lp, cfg: ModelConfig, state: MambaState
 
     xin, conv_new = _causal_conv(xin, lp["conv_w"], lp["conv_bias"],
                                  state.conv)
-    xh = xin.reshape(b, s, h, hd)
+    xh = split_heads(xin, h)
     a_log = -torch.exp(torch.clamp(lp["A_log"].float(), -8.0, 6.0))
     y, s_new = ssd_chunked(xh, Bc, Cc, dt, a_log, state.s, cfg.seq_chunk)
     y = y + lp["skip_D"].float()[None, None, :, None] * xh.float()

@@ -19,6 +19,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..configs.base import ModelConfig
+from ..parallel.constraints import split_heads
 from .attention import KVCache, attention, attn_param_specs, decode_attention
 from .common import (COMPUTE_DTYPE, cast, dense, rms_norm,
                      softmax_cross_entropy, spec, swiglu, tree_map)
@@ -70,7 +71,7 @@ def _cross_layer(x, cp, cfg: ModelConfig, img=None, cross_cache=None,
     h = rms_norm(x, cp["norm"], cfg.norm_eps)
     if cross_cache is not None:
         b = h.shape[0]
-        q = dense(h, cp["attn"]["wq"]).reshape(b, 1, cfg.n_heads, cfg.hd)
+        q = split_heads(dense(h, cp["attn"]["wq"]), cfg.n_heads)
         # this group's (B, n_img, KV, hd) slice: every image position
         o = decode_attention(q, cross_cache, cross_cache.k.shape[1] - 1)
         a = dense(o.reshape(b, 1, -1), cp["attn"]["wo"])

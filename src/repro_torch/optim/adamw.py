@@ -60,8 +60,10 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init(params: PyTree) -> AdamWState:
-    zeros = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                           device=p.device), params)
+    # zeros_like: on a mesh each moment is a DTensor at its parameter's
+    # placements
+    zeros = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                     params)
     step = torch.zeros((), dtype=torch.int32,
                        device=tree_leaves(params)[0].device)
     return AdamWState(step=step, m=zeros, v=tree_map(torch.clone, zeros))

@@ -4,6 +4,12 @@ A train step takes the state and a batch and returns the next state and
 its stats, as the reference's; like the reference's jitted step, which
 donates its state, it writes the new params and AdamW moments into the
 state's tensors, so the caller drops the state it passed in.
+
+On a mesh the state and the batch are DTensors placed by
+``parallel.rules`` and the step runs under
+``parallel.constraints.mesh_context(mesh)``: the gradients come back at
+their parameters' placements, the microbatch accumulators are made like
+their parameters, and the stats are replicated scalars.
 """
 from __future__ import annotations
 
@@ -13,6 +19,7 @@ import torch
 
 from ..models.common import ParamSpec, tree_leaves, tree_map, tree_unflatten
 from ..models.model_zoo import ModelAPI
+from ..parallel.constraints import replicate, unshard
 from ..optim import adamw
 
 PyTree = Any
@@ -65,8 +72,9 @@ def make_train_step(api: ModelAPI, opt_cfg: adamw.AdamWConfig) -> Callable:
             # gradient accumulation: peak activation memory / n_micro
             micro = tree_map(lambda x: x.reshape(
                 n_micro, x.shape[0] // n_micro, *x.shape[1:]), batch)
-            gsum = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), state.params)
+            # zeros_like: a DTensor at its parameter's placements on a mesh
+            gsum = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), state.params)
             losses = []
             for i in range(n_micro):
                 loss, g = grad_fn(state.params,
@@ -81,7 +89,7 @@ def make_train_step(api: ModelAPI, opt_cfg: adamw.AdamWConfig) -> Callable:
         params, opt, stats = adamw.update(opt_cfg, grads, state.opt,
                                           state.params)
         new_state = TrainState(params=params, opt=opt, step=state.step + 1)
-        return new_state, {"loss": loss, **stats}
+        return new_state, {"loss": replicate(loss), **stats}
 
     return train_step
 
@@ -108,7 +116,9 @@ def make_decode_step(api: ModelAPI) -> Callable:
     @torch.no_grad()
     def decode_step(params: PyTree, batch: dict, cache: PyTree):
         logits, new_cache = api.decode(params, batch, cache)
-        next_token = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        # the vocab whole on a mesh (identity on a plain tensor)
+        logits = unshard(logits[:, -1, :], -1)
+        next_token = torch.argmax(logits, dim=-1).to(torch.int32)
         return next_token, new_cache
 
     return decode_step

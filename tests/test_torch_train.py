@@ -524,8 +524,8 @@ def test_train_launcher_small_on_cpu(tmp_path, capsys):
     again = train.main(argv + ["--steps", "8"])
     assert again["start_step"] == 6 and len(again["loss"]) == 2
     assert "resumed from step 6" in capsys.readouterr().out
-    for mesh in ("single", "multi"):
-        with pytest.raises(NotImplementedError, match="G3"):
+    for mesh, need in (("single", 256), ("multi", 512)):
+        with pytest.raises(ValueError, match=f"need {need} devices"):
             train.main(argv + ["--steps", "1", "--mesh", mesh])
 
 
