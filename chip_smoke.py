@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one CUDA card (an NVIDIA H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --autotune-only     # phase (p) alone
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and drives
 the port's main path, single-device ``partition()``, on a
@@ -192,9 +193,23 @@ about 128 M directed CSR entries, k = 32):
       device (nothing allocated; started with phase (a), CPU work):
       per-device bytes, dot FLOPs and collective bytes, the per-device
       bytes x 256 at least the params, grads and AdamW moments;
+  (p) the tile autotuner (``repro_torch.kernels.autotune``): on the full
+      graph at k = 32, the medium graph at k = 2, 8, 32, 128 and 512, and
+      a skewed graph (Chung-Lu with Zipf expected degrees, exponent 2.1,
+      1,048,576 vertices, expected average degree 16, built -- with
+      (k1)'s tenant graphs -- by a child process started in phase (a)),
+      K1's
+      base form and K2 under every candidate tile and the default, each
+      bitwise equal to one plain run of its case, with its CUDA-event
+      median time, the model's cost and grid beside the time and the
+      card's grid; the model's pick against the measured best and their
+      ratio; a least-squares fit of the model's constants on this run;
+      then ``partition()`` of the medium graph with ``autotune="on"``,
+      ``"off"`` and a pinned non-default tile: identical labels, loads
+      and iterations, with ``stats()["tile_config"]``;
   (e) each kernel's achieved bytes/s (the bytes its bound counts over its
       measured time) beside its bound, then one JSON line describing each
-      kernel.
+      kernel (K1's and K2's with the tile the main path launched).
 
 Exits non-zero, printing no result, if there is no CUDA device or any
 check fails.  The last line is ``{"ok": true, "device": {...}}``.
@@ -222,6 +237,9 @@ B1_PAIRS, B2_PAIRS = 64_000, 640_000   # 0.1% and 1% of the full graph's edges
 # from the default 300 to keep the smoke, phases (n) and (o) included,
 # inside its time limit
 SESSION_ITERS = 40
+# (p): the skewed graph's shape and the medium graph's k sweep
+SKEW_N, SKEW_DEG, SKEW_EXP = 1_048_576, 16, 2.1
+TUNE_KS = (2, 8, 32, 128, 512)
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/spinner_scores.cu"
 PREGEL_SOURCE = "src/repro_torch/kernels/csrc/pregel_combine.cu"
 PREGEL_TPU = "src/repro/kernels/pregel_combine.py"
@@ -261,11 +279,12 @@ def max_abs_err(pairs) -> float:
 
 
 def kernels_against_plain(padded, dev, labels, pen, noise,
-                          num_real: int) -> dict:
+                          num_real: int, tiles: dict) -> dict:
     """Both kernels on these inputs against their plain versions: bitwise
     equal, with CUDA-event median times of the kernel, the plain version
     and, for the score matrix, ``torch.sparse.mm`` (a library yardstick
-    the port never calls)."""
+    the port never calls).  ``tiles`` holds each kernel's tile, the one
+    the main path launches (``main_tiles``)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.spinner_scores import fused_update, spinner_scores
 
@@ -274,7 +293,8 @@ def kernels_against_plain(padded, dev, labels, pen, noise,
     src = csr.src
 
     def k2():
-        return spinner_scores(labels, csr.row_ptr, csr.dst, csr.weight, K)
+        return spinner_scores(labels, csr.row_ptr, csr.dst, csr.weight, K,
+                              tile=tiles["scores"])
 
     def k2_plain():
         return ref.spinner_scores_ref(labels, src, csr.dst, csr.weight, v, K)
@@ -282,7 +302,7 @@ def kernels_against_plain(padded, dev, labels, pen, noise,
     def k1(weighted=True):
         return fused_update(labels, csr.row_ptr, csr.dst, csr.weight,
                             csr.deg_w, pen, noise, num_real, K, 1e-6,
-                            weighted)
+                            weighted, tile=tiles["fused"])
 
     def k1_plain(weighted=True):
         return ref.fused_propose_ref(labels, src, csr.dst, csr.weight,
@@ -340,7 +360,21 @@ def print_kernels(tag: str, res: dict) -> None:
               flush=True)
 
 
-def phase_kernels(padded, dev, report: dict) -> None:
+def main_tiles(graph, dev) -> dict:
+    """The tile the main path's K1 (``partition``) and its split path's K2
+    (``fused_update="off"``) launch with, as the autotuner binds it."""
+    from repro_torch.core import EngineOptions, SpinnerConfig, engine
+
+    cfg = SpinnerConfig(k=K)
+    out = {}
+    for form, fused in (("fused", "auto"), ("scores", "off")):
+        opts = engine._autotuned(graph, cfg, EngineOptions(
+            device=dev, fused_update=fused))
+        out[form] = opts.backend().tile(K, form)
+    return out
+
+
+def phase_kernels(graph, padded, dev, report: dict) -> None:
     """(b) Both kernels at full size on uniform random labels."""
     from repro_torch import rng
 
@@ -354,7 +388,12 @@ def phase_kernels(padded, dev, report: dict) -> None:
     pen = loads / torch.tensor(1.05 * padded.total_weight / K,
                                dtype=torch.float32, device=dev)
     noise = rng.uniform(rng.PRNGKey(12), (v, K), 0.0, 1e-7, device=dev)
-    res = kernels_against_plain(padded, dev, labels, pen, noise, v - 1000)
+    tiles = report["main_tiles"] = main_tiles(graph, dev)
+    print(f"(b) the main path's tiles (warps, rows), the autotuner's: K1 "
+          f"{tiles['fused']}, K2 {tiles['scores']} (None: the default)",
+          flush=True)
+    res = kernels_against_plain(padded, dev, labels, pen, noise, v - 1000,
+                                tiles)
     print_kernels("b, random labels", res)
 
     # bytes each call must move: every input read once, every output
@@ -390,6 +429,7 @@ def phase_main_path(graph, padded, dev, report: dict) -> np.ndarray:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k1_launches, k2_launches = fused_update.launches, spinner_scores.launches
+    report["fused_update_csr"]["tile"] = list(fused_update.last_tile)
     check(k1_launches == res.iterations,
           f"fused_update_csr launched {k1_launches} times in "
           f"{res.iterations} iterations")
@@ -431,7 +471,7 @@ def phase_main_path(graph, padded, dev, report: dict) -> np.ndarray:
     noise = rng.uniform(k_noise, (v_pad, K), 0.0, cfg.tie_noise, device=dev)
     u = rng.uniform(k_mig, (v_pad,), device=dev)
     converged = kernels_against_plain(padded, dev, labels, pen, noise,
-                                      bind.num_real)
+                                      bind.num_real, report["main_tiles"])
     print_kernels("c, converged labels", converged)
     for name, r in converged.items():
         rand = report[name]["random_labels"]
@@ -463,6 +503,7 @@ def phase_main_path(graph, padded, dev, report: dict) -> np.ndarray:
     off = partition(graph, short, engine="fused",
                     options=EngineOptions(device=dev, fused_update="off"))
     k2_launches = spinner_scores.launches
+    report["spinner_scores_csr"]["tile"] = list(spinner_scores.last_tile)
     check(k2_launches == off.iterations >= 1,
           f"spinner_scores_csr launched {k2_launches} times in "
           f"{off.iterations} iterations")
@@ -1087,7 +1128,8 @@ def phase_session(graph, dev, report: dict) -> None:
             sent = st["delta"]["last_upload_bytes"] if name != "partition" \
                 else 0
             calls[name] = dict(res=r, wall_s=wall, upload_bytes=sent,
-                               variant_launches=n_var, base_launches=n_base)
+                               variant_launches=n_var, base_launches=n_base,
+                               tile=fused_update_frontier.last_tile)
             print(f"(g2) {backend} {name}: iterations={r.iterations} "
                   f"halted={r.halted} wall={wall:.3f}s "
                   f"kernel launches base={n_base} frontier={n_var}"
@@ -1141,6 +1183,8 @@ def phase_session(graph, dev, report: dict) -> None:
     report["session"]["frontier_scored_fraction"] = frac
     report["fused_update_frontier_csr"]["launches"] = \
         runs["cuda"][0]["adapt_b1_frontier"]["variant_launches"]
+    report["fused_update_frontier_csr"]["tile"] = list(
+        runs["cuda"][0]["adapt_b1_frontier"]["tile"])
     report["session_torch"] = {name: c["res"]
                                for name, c in runs["torch"][0].items()}
 
@@ -1331,6 +1375,8 @@ def phase_sharded_main(graph, fused_res: dict, dev, report: dict) -> None:
             check(n_base == res.iterations and n_seed == n_k2 == 0,
                   f"no overlap: base {n_base}, seeded {n_seed} launches in "
                   f"{res.iterations} iterations")
+        if overlap == "on":
+            seeded_tile = list(fused_update_seeded.last_tile)
         runs[overlap] = dict(iterations=res.iterations, halted=res.halted,
                              wall_s=wall, seeded_launches=n_seed,
                              interior_launches=n_k2, base_launches=n_base,
@@ -1400,7 +1446,8 @@ def phase_sharded_main(graph, fused_res: dict, dev, report: dict) -> None:
     }
     nbytes = shard_bytes(v, d_f.numel(), 0, K, True, True)
     seeded_row = dict(
-        launches=runs["on"]["seeded_launches"], max_abs_err=err,
+        launches=runs["on"]["seeded_launches"], tile=seeded_tile,
+        max_abs_err=err,
         ms=split["seeded_ms"], plain_ms=time_ms(plain, reps=5),
         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes)
     print(f"(h2) fused_update_seeded_csr at the main path's shapes (V_pad="
@@ -2057,19 +2104,18 @@ def _serve_split(sessions, cfg, dev, smi: str) -> dict:
     return dict(batched=split, serial=serial, host_per_window=host)
 
 
-def phase_serve_fleet(dev, smi: str, report: dict) -> list:
-    """(k1) Eight same-bucket tenants of ~200,000 vertices: naive serving,
-    the scheduler serial and batched on the torch backend, and the
-    scheduler on the CUDA backend (serial, K1), on one request stream;
-    every ticket held to a twin session; returns the graphs."""
+def phase_serve_fleet(graphs: list, t_build: float, dev, smi: str,
+                      report: dict) -> list:
+    """(k1) Eight same-bucket tenants of ~200,000 vertices (``graphs``,
+    ``traffic.tenant_graph(SERVE_N + 17 i, seed=i, k_nbrs=16)`` built by
+    ``start_host_graphs``' child in ``t_build`` s): naive serving, the
+    scheduler serial and batched on the torch backend, and the scheduler
+    on the CUDA backend (serial, K1), on one request stream; every ticket
+    held to a twin session; returns the graphs."""
     from repro_torch.core import (EngineOptions, SpinnerConfig, delta,
                                   engine, open_session)
     from repro_torch.serve import traffic
 
-    t0 = time.perf_counter()
-    graphs = [traffic.tenant_graph(SERVE_N + 17 * i, seed=i, k_nbrs=16)
-              for i in range(SERVE_TENANTS)]
-    t_build = time.perf_counter() - t0
     buckets = {engine.graph_buckets(g) for g in graphs}
     check(len(buckets) == 1, f"(k1) tenants in {len(buckets)} buckets")
     cfg = SpinnerConfig(k=K)
@@ -2151,7 +2197,8 @@ def phase_serve_fleet(dev, smi: str, report: dict) -> list:
     ratio = out["batched"]["throughput_rps"] / out["serial"]["throughput_rps"]
     coal = out["serial"]["throughput_rps"] / out["naive"]["throughput_rps"]
     print(f"(k1) {SERVE_TENANTS} tenants V={[g.num_vertices for g in graphs]}"
-          f" in bucket ({v_pad}, {e_pad}), built in {t_build:.3f}s; bursts "
+          f" in bucket ({v_pad}, {e_pad}), built in {t_build:.3f}s beside "
+          f"phases (b)-(j); bursts "
           f"of {SERVE_BURST} x {SERVE_PAIRS} pairs, 1 warm + {SERVE_ROUNDS} "
           f"timed rounds; every ticket identical to its twin session "
           f"(coalesced window / one adapt per request); the CUDA backend "
@@ -3648,6 +3695,297 @@ def phase_mesh_dryrun(procs: list, smi: str, report: dict) -> None:
     report["mesh_dryrun"] = res
 
 
+# --------------------------------------------------------------------------
+# (p) the tile autotuner: every candidate tile of K1 and K2, timed beside
+# the model's cost, on a uniform, a medium and a skewed graph
+# --------------------------------------------------------------------------
+
+def chung_lu_zipf(n: int, avg_deg: int, exponent: float, seed: int):
+    """A Chung-Lu graph: ``n * avg_deg / 2`` pairs, each endpoint drawn with
+    probability proportional to a Zipf expected degree ``i ** (-1 / (exponent
+    - 1))`` (a power-law degree tail of that exponent), the weights shuffled
+    over the vertex ids; self-pairs dropped, the rest through ``from_edges``
+    (parallel pairs merge, Eq. 3 weights).  Vectorized: one draw per pair."""
+    from repro_torch.core.graph import from_edges
+
+    gen = np.random.default_rng(seed)
+    w = np.arange(1, n + 1, dtype=np.float64) ** (-1.0 / (exponent - 1.0))
+    cdf = np.cumsum(w[gen.permutation(n)])
+    cdf /= cdf[-1]
+    m = n * avg_deg // 2
+    src = np.searchsorted(cdf, gen.random(m), side="right")
+    dst = np.searchsorted(cdf, gen.random(m), side="right")
+    keep = src != dst
+    return from_edges(src[keep].astype(np.int32), dst[keep].astype(np.int32),
+                      n)
+
+
+HOST_GRAPHS = Path(__file__).resolve().parent / "build" / "host_graphs.npz"
+_GRAPH_FIELDS = ("src", "dst", "weight", "row_ptr", "deg_w")
+
+
+def write_host_graphs(path: str, tenants: bool) -> None:
+    """Build (p)'s skewed graph and, with ``tenants``, (k1)'s tenant graphs,
+    and save their arrays (and each build's seconds) to ``path``: run in a
+    child process from phase (a), so the host builds them beside the
+    card's phases."""
+    from repro_torch.serve import traffic
+
+    t0 = time.perf_counter()
+    graphs = {"skewed": chung_lu_zipf(SKEW_N, SKEW_DEG, SKEW_EXP, seed=5)}
+    seconds = {"skewed": time.perf_counter() - t0}
+    if tenants:
+        t0 = time.perf_counter()
+        for i in range(SERVE_TENANTS):
+            graphs[f"tenant{i}"] = traffic.tenant_graph(
+                SERVE_N + 17 * i, seed=i, k_nbrs=16)
+        seconds["tenants"] = time.perf_counter() - t0
+    arrays = {f"{name}/{f}": getattr(g, f) for name, g in graphs.items()
+              for f in _GRAPH_FIELDS}
+    arrays.update({f"{name}/num_vertices": g.num_vertices
+                   for name, g in graphs.items()})
+    arrays.update({f"seconds/{k}": v for k, v in seconds.items()})
+    np.savez(path, **arrays)
+
+
+def start_host_graphs(tenants: bool = True) -> subprocess.Popen:
+    import os
+    root = Path(__file__).resolve().parent
+    HOST_GRAPHS.parent.mkdir(parents=True, exist_ok=True)
+    HOST_GRAPHS.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(root / "src"),
+               OMP_NUM_THREADS="1")
+    return subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "chip_smoke.write_host_graphs(sys.argv[1], sys.argv[2] == '1')",
+         str(HOST_GRAPHS), "1" if tenants else "0"],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def load_host_graphs(proc: subprocess.Popen) -> tuple:
+    """Wait for ``start_host_graphs``' child; returns ``({name: Graph},
+    {name: build seconds})``."""
+    from repro_torch.core.graph import Graph
+
+    _, err = proc.communicate(timeout=900)
+    check(proc.returncode == 0,
+          f"the host graphs' build exited {proc.returncode}: {err[-4000:]}")
+    with np.load(HOST_GRAPHS) as d:
+        names = sorted({k.split("/")[0] for k in d.files} - {"seconds"})
+        graphs = {n: Graph(num_vertices=int(d[f"{n}/num_vertices"]),
+                           **{f: d[f"{n}/{f}"] for f in _GRAPH_FIELDS})
+                  for n in names}
+        seconds = {k.split("/")[1]: float(d[k]) for k in d.files
+                   if k.startswith("seconds/")}
+    HOST_GRAPHS.unlink()
+    return graphs, seconds
+
+
+def print_skewed(g, seconds: float) -> None:
+    degs = np.diff(g.row_ptr)
+    print(f"(p) skewed graph, built beside phases (b)-(j) in {seconds:.3f}s: "
+          f"Chung-Lu, Zipf exponent {SKEW_EXP}, expected average degree "
+          f"{SKEW_DEG}, V={g.num_vertices} E={g.num_directed_entries} "
+          f"(average degree {degs.mean():.3f} once parallel pairs merge, "
+          f"largest {degs.max()}, top 0.1% of rows "
+          f"{np.sort(degs)[-SKEW_N // 1000:].sum() / degs.sum():.4f} of "
+          "the entries)", flush=True)
+
+
+def _fit_model(samples: list) -> dict:
+    """Least squares of the model's constants on this run's times: for
+    each ``parallel`` of a grid, alternate (each sample's worst slot and
+    worst SM under the current constants) and a non-negative fit of the
+    ``FEATURES``' seconds and the overhead to ``worst slot + worst SM /
+    parallel + overhead`` on relative error; keep the ``parallel`` with
+    the least error."""
+    from scipy.optimize import nnls
+    from repro_torch.kernels.autotune import FEATURES
+
+    best = None
+    for par in (2.0, 4.0, 8.0, 16.0, 24.0, 32.0, 48.0, 64.0):
+        x = np.full(len(FEATURES), 1e-7)
+        for _ in range(10):
+            rows = []
+            for smp in samples:
+                slot = smp["slots"][int(np.argmax(smp["slots"] @ x))]
+                sm = smp["sms"][int(np.argmax(smp["sms"] @ x))] / par
+                rows.append(slot + sm)
+            a = np.hstack([np.array(rows), np.ones((len(rows), 1))])
+            t = np.array([smp["s"] for smp in samples])
+            sol, _ = nnls(a / t[:, None], np.ones(len(t)))
+            x = sol[:-1]
+        pred = a @ sol
+        err = float(np.sqrt(np.mean((pred / t - 1.0) ** 2)))
+        if best is None or err < best["rms_rel_err"]:
+            best = dict(zip(FEATURES, x), parallel=par, overhead=sol[-1],
+                        rms_rel_err=err)
+    return best
+
+
+def phase_autotune(cases: list, medium, dev, smi: str, report: dict) -> None:
+    """(p) For each ``(name, graph, k)`` case, K1's base form and K2 under
+    every candidate tile and the default: bitwise equal to one plain run,
+    CUDA-event median ms beside the model's cost and grid; the model's
+    pick against the measured best; a fit of the model on these times;
+    then ``partition`` of the medium graph with autotune on, off and a
+    pinned tile."""
+    from repro_torch import rng
+    from repro_torch.core import EngineOptions, SpinnerConfig, engine
+    from repro_torch.core import open_session, partition
+    from repro_torch.kernels import autotune, ref
+    from repro_torch.kernels.ops import CudaCsrBackend
+    from repro_torch.kernels.spinner_scores import (fused_update, layout,
+                                                    spinner_scores,
+                                                    tile_grid)
+
+    t_phase = time.perf_counter()
+    rows, samples = [], {kernel: [] for kernel in autotune.KERNELS}
+    for name, graph, k in cases:
+        padded, num_real = engine.padded_view(graph,
+                                              EngineOptions(device=dev))
+        csr = padded.to_device(dev)
+        v = padded.num_vertices
+        deg = autotune._shard_degrees(padded, 1)[0]
+        min_total = autotune._min_total(padded, 1)
+        gen = np.random.default_rng(k + v)
+        labels = torch.from_numpy(gen.integers(0, k, v, dtype=np.int32)
+                                  ).to(dev)
+        loads = torch.zeros(k, dtype=torch.float32, device=dev).index_add_(
+            0, labels.long(), csr.deg_w)
+        pen = loads / torch.tensor(1.05 * padded.total_weight / k,
+                                   dtype=torch.float32, device=dev)
+        noise = rng.uniform(rng.PRNGKey(k), (v, k), 0.0, 1e-7, device=dev)
+        base = (labels, csr.row_ptr, csr.dst, csr.weight)
+        calls = {
+            "fused": lambda tile: fused_update(
+                *base, csr.deg_w, pen, noise, num_real, k, 1e-6, True,
+                tile=tile),
+            "scores": lambda tile: spinner_scores(*base, k, tile=tile)}
+        plain = {
+            "fused": ref.fused_propose_ref(labels, csr.src, csr.dst,
+                                           csr.weight, csr.deg_w, pen, noise,
+                                           num_real, k, 1e-6, True),
+            "scores": ref.spinner_scores_ref(labels, csr.src, csr.dst,
+                                             csr.weight, v, k)}
+        for kernel in autotune.KERNELS:
+            sweep = {(r["warps"], r["rows"]): r
+                     for r in autotune.sweep(padded, k, kernel=kernel)}
+            pick = autotune.choose_tile_config(padded, k, kernel=kernel)
+            want = plain[kernel]
+            tiles = [None] + list(sweep)
+            for tile in tiles:
+                got = calls[kernel](tile)
+                outs = got if kernel == "fused" else (got,)
+                wants = want if kernel == "fused" else (want,)
+                check(all(bits_equal(a, b) for a, b in zip(outs, wants)),
+                      f"(p) {name} k={k} {kernel} at tile {tile} differs "
+                      "from its plain version")
+                del got, outs
+            # three rounds over the tiles in turn, the median of each
+            # tile's three medians: a drift of the card's clock or of its
+            # neighbours falls on every tile alike
+            rounds = [{tile: time_ms(lambda: calls[kernel](tile), reps=10)
+                       for tile in tiles} for _ in range(3)]
+            times = {tile: statistics.median(r[tile] for r in rounds)
+                     for tile in tiles}
+            default = layout(k, kernel)[:2]
+            for tile, r in sweep.items():
+                grid = tile_grid(kernel, v, k, tile)
+                check(grid == r["grid"], f"(p) {name} k={k} {kernel} {tile}: "
+                      f"the card's grid {grid}, the model's {r['grid']}")
+                f = autotune.slot_features(deg, *tile, k, kernel)
+                samples[kernel].append(dict(slots=f["slots"], sms=f["sms"],
+                                            s=times[tile] * 1e-3))
+                print(f"(p) {name} k={k} {kernel} tile {tile}"
+                      f"{' (default)' if tile == default else ''}: "
+                      f"{times[tile]:.4f} ms, model {r['cost_s'] * 1e3:.4f} "
+                      f"ms, grid {grid}, groups {r['groups']}, largest group "
+                      f"{r['max_group_entries']} entries, smem "
+                      f"{r['smem_bytes']} B; bitwise equal [{smi}]",
+                      flush=True)
+            measured = min(sweep, key=lambda t: times[t])
+            chosen = pick[:2]
+            ratio = times[chosen] / times[measured]
+            rows.append(dict(case=name, k=k, kernel=kernel, v=v,
+                             e=padded.num_directed_entries,
+                             default_ms=times[None], pick=list(chosen),
+                             pick_ms=times[chosen], best=list(measured),
+                             best_ms=times[measured], ratio=ratio,
+                             ms={f"{w}x{r}": times[(w, r)]
+                                 for w, r in sweep},
+                             model_ms={f"{w}x{r}": sweep[(w, r)]["cost_s"]
+                                       * 1e3 for w, r in sweep}))
+            print(f"(p) {name} k={k} {kernel}: default {times[None]:.4f} ms; "
+                  f"model's pick {chosen} {times[chosen]:.4f} ms, measured "
+                  f"best {measured} {times[measured]:.4f} ms, pick / best "
+                  f"{ratio:.4f} [{smi}]", flush=True)
+        del noise, plain, calls
+        torch.cuda.empty_cache()
+    for kernel, smp in samples.items():
+        fit = _fit_model(smp)
+        report.setdefault("autotune_fit", {})[kernel] = fit
+        print(f"(p) model fit on this run, {kernel} ({len(smp)} times): "
+              + ", ".join(f"{key}={val:.6g}" for key, val in fit.items())
+              + f"; the module's: {autotune.COEFFS[kernel]} [{smi}]",
+              flush=True)
+
+    # whole runs: the tuner on, off and a pinned non-default tile
+    g = medium
+    cfg = SpinnerConfig(k=K)
+    res = {}
+    for mode, opts in (
+            ("on", EngineOptions(device=dev, autotune="on")),
+            ("off", EngineOptions(device=dev, autotune="off")),
+            ("pinned 4x8", EngineOptions(
+                device=dev, score_backend=CudaCsrBackend(warps=4, rows=8)))):
+        fused_update.launches = 0
+        r = partition(g, cfg, engine="fused", options=opts)
+        check(fused_update.launches == r.iterations,
+              f"(p) autotune={mode}: K1 launched {fused_update.launches} "
+              f"times in {r.iterations} iterations")
+        with open_session(g, cfg, opts) as sess:
+            tile = sess.stats()["tile_config"]
+        check(list(fused_update.last_tile) == [tile["warps"], tile["rows"],
+                                               tile["smem_bytes"]],
+              f"(p) autotune={mode}: launched {fused_update.last_tile}, "
+              f"stats say {tile}")
+        res[mode] = (r, tile)
+    first = res["on"][0]
+    for mode, (r, tile) in res.items():
+        check(np.array_equal(r.labels, first.labels)
+              and np.array_equal(r.loads, first.loads)
+              and r.iterations == first.iterations,
+              f"(p) partition with autotune {mode} differs from 'on'")
+        print(f"(p) partition(medium, autotune={mode!r}): iterations "
+              f"{r.iterations}, tile_config {tile}", flush=True)
+    print("(p) labels, loads and iterations identical under autotune on, "
+          "off and the pinned tile", flush=True)
+    took = time.perf_counter() - t_phase
+    report["autotune"] = dict(cases=rows, seconds=took,
+                              tile_config={m: t for m, (_, t)
+                                           in res.items()})
+    print(f"(p) phase (p) took {took:.3f}s [{smi}]", flush=True)
+
+
+def autotune_only(host_build, dev, smi: str) -> int:
+    """``python3 chip_smoke.py --autotune-only``: phase (p) alone on its
+    three graphs -- the run whose printed fit refits
+    ``kernels/autotune.py``'s constants after a kernel changes."""
+    from repro_torch.core import generators
+
+    graph = generators.watts_strogatz(FULL_N, DEG, BETA, seed=0)
+    medium = generators.watts_strogatz(MEDIUM_N, DEG, BETA, seed=1)
+    host_graphs, host_s = load_host_graphs(host_build)
+    print_skewed(host_graphs["skewed"], host_s["skewed"])
+    phase_autotune([("full", graph, K)]
+                   + [("medium", medium, k) for k in TUNE_KS]
+                   + [("skewed", host_graphs["skewed"], K)], medium, dev,
+                   smi, {})
+    return 0
+
+
 def print_rates(kernels: list) -> None:
     """(e) Each kernel's achieved rate, the bytes its bound counts over its
     measured time, beside the bound; adds ``achieved_bytes_per_s`` (and
@@ -3691,6 +4029,10 @@ def main() -> int:
             ln.strip() for ln in log.splitlines() if "registers" in ln
             or "spill" in ln), flush=True)
 
+    if sys.argv[1:] == ["--autotune-only"]:
+        return autotune_only(start_host_graphs(tenants=False), dev, smi)
+    host_build = start_host_graphs()    # (k1)'s and (p)'s graphs, built
+                                        # beside the card's phases
     dryruns = start_dryruns()       # (o2): host work beside the card's
     t0 = time.perf_counter()
     graph = generators.watts_strogatz(FULL_N, DEG, BETA, seed=0)
@@ -3702,7 +4044,7 @@ def main() -> int:
           f"loads and M(l) stay below it", flush=True)
 
     report: dict = {}
-    phase_kernels(padded, dev, report)
+    phase_kernels(graph, padded, dev, report)
     torch.cuda.empty_cache()
     labels = phase_main_path(graph, padded, dev, report)
     torch.cuda.empty_cache()
@@ -3736,7 +4078,10 @@ def main() -> int:
           flush=True)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    serve_graphs = phase_serve_fleet(dev, smi, report)
+    host_graphs, host_s = load_host_graphs(host_build)
+    serve_graphs = phase_serve_fleet(
+        [host_graphs[f"tenant{i}"] for i in range(SERVE_TENANTS)],
+        host_s["tenants"], dev, smi, report)
     torch.cuda.empty_cache()
     phase_serve_poisson(dev, smi, report)
     phase_serve_durability(serve_graphs, dev, smi, report)
@@ -3762,6 +4107,12 @@ def main() -> int:
     phase_mesh_dryrun(dryruns, smi, report)
     print(f"(o) phase (o) took {time.perf_counter() - t0:.3f}s (the dry "
           f"runs started with phase (a)) [{smi}]", flush=True)
+    torch.cuda.empty_cache()
+    print_skewed(host_graphs["skewed"], host_s["skewed"])
+    phase_autotune([("full", graph, K)]
+                   + [("medium", medium[0], k) for k in TUNE_KS]
+                   + [("skewed", host_graphs["skewed"], K)], medium[0], dev,
+                   smi, report)
 
     tpu = "src/repro/kernels/spinner_scores.py"
     replaces = {"fused_update_csr": f"{tpu}:241",
@@ -3772,6 +4123,7 @@ def main() -> int:
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": "bytes", "library_ms": r["library_ms"],
+        "tile": r["tile"],
         "ms_random_labels": r["random_labels"]["ms"],
         "plain_ms_random_labels": r["random_labels"]["plain_ms"],
         "library_ms_random_labels": r["random_labels"]["library_ms"],
@@ -3785,6 +4137,7 @@ def main() -> int:
         "name": "fused_update_frontier_csr", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": f"{tpu}:241",
         "variant": "tile_act (has_act=True)", "launches": front["launches"],
+        "tile": front["tile"],
         "max_abs_err": max(front["max_abs_err"],
                            front["random10"]["max_abs_err"]),
         "ms": front["ms"], "plain_ms": front["plain_ms"],
@@ -3801,6 +4154,7 @@ def main() -> int:
         "name": "fused_update_seeded_csr", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": f"{tpu}:241",
         "variant": "acc_init (has_init=True)", "launches": seeded["launches"],
+        "tile": seeded["tile"],
         "max_abs_err": max(seeded["max_abs_err"],
                            report["seeded_shard_err"]),
         "ms": seeded["ms"], "plain_ms": seeded["plain_ms"],

@@ -352,14 +352,22 @@ def has_rank_shard(graph: Graph, ndev: int, rank: int, device) -> bool:
 # ---------------------------------------------------------------------------
 
 def comm_stats(sg: ShardedGraph, cfg,
-               options: Optional[engine.EngineOptions] = None) -> dict:
+               options: Optional[engine.EngineOptions] = None,
+               graph: Optional[Graph] = None) -> dict:
     """Per-iteration communication volume of the sharded engine: the
     label exchange (``options.label_exchange``, see ``core.comm``) plus the
     reduced (k,) aggregators; ``message_bytes_per_iter`` is the plan's
     static message volume, None for the plans whose volume is measured on
-    the device (``PartitionResult.exchanged_bytes``)."""
+    the device (``PartitionResult.exchanged_bytes``).
+
+    Passing ``graph`` (the graph the runner binds) also resolves the tile
+    autotuner, so ``score_backend`` / ``fused_update`` / ``tile_config``
+    (the CUDA backend's ``{"warps", "rows", "smem_bytes"}``) are what the
+    run launches."""
     from . import comm, metrics
     opts = options if options is not None else engine.EngineOptions()
+    if graph is not None:
+        opts = engine._autotuned(graph, cfg, opts, ndev=sg.ndev)
     name = opts.resolved_label_exchange(sg.ndev)
     pad = opts.pad == "bucket"
     plan = comm.make_exchange_plan(name, sg, delta_cap=opts.delta_cap,
@@ -378,6 +386,9 @@ def comm_stats(sg: ShardedGraph, cfg,
         "score_backend": opts.backend().name,
         "fused_update": opts.resolved_fused_update(),
     }
+    tile = engine.tile_config(opts, cfg.k)
+    if tile is not None:
+        stats["tile_config"] = tile
     if name == "halo":
         stats["halo_padded_bytes_per_iter"] = \
             plan.padded_wire_bytes_per_iter()

@@ -112,6 +112,15 @@ class EngineOptions:
     (``"on"`` scores the interior segment while the exchange is in
     flight, ``"auto"`` = on over more than one device; bit-identical to
     ``"off"``).
+
+    ``autotune`` binds the tile autotuner's ``(warps, rows)`` into the
+    CUDA backend (``_autotuned``, ``kernels.autotune``): a cost model of
+    the kernels' schedule over the padded graph's degrees, memoized per
+    shape bucket, so a session's warm same-bucket ``adapt()`` keeps its
+    backend.  ``"auto"`` tunes the registry default (``"cuda"`` by name)
+    and leaves an explicit ``CudaCsrBackend`` instance's tile pinned;
+    ``"on"`` tunes instances too; ``"off"`` keeps the kernels' default
+    layout.  On the Eq. 3 weights every tile gives the same bits.
     """
 
     engine: str = "auto"             # auto | fused | chunked | sharded | host
@@ -126,6 +135,7 @@ class EngineOptions:
     delta_cap: Optional[int] = None
     sharded_noise: str = "replicated"
     overlap: str = "auto"            # auto | on | off
+    autotune: str = "auto"           # auto | on | off
 
     def __post_init__(self):
         self.resolved_overlap(1)     # an unknown schedule fails at once
@@ -157,6 +167,12 @@ class EngineOptions:
 
     def resolved_device(self) -> torch.device:
         return resolve_device(self.device)
+
+    def resolved_autotune(self) -> str:
+        if self.autotune not in ("auto", "on", "off"):
+            raise ValueError(f"unknown autotune {self.autotune!r}; "
+                             "available: auto, on, off")
+        return self.autotune
 
     def resolved_fused_update(self) -> str:
         if self.fused_update not in ("auto", "on", "off"):
@@ -248,6 +264,53 @@ def padded_view(graph: Graph, opts: EngineOptions) -> Tuple[Graph, int]:
     if padded is None:
         padded = graph._cache[key] = pad_graph(graph, vb, eb)
     return padded, graph.num_vertices
+
+
+def _autotuned(graph: Graph, cfg, opts: EngineOptions,
+               ndev: int = 1) -> EngineOptions:
+    """Options with the tile autotuner's ``(warps, rows)`` bound into the
+    CUDA backend.
+
+    Only the ``"cuda"`` backend is tunable; the tile is bound by
+    ``dataclasses.replace`` of the backend instance, so it flows into
+    ``backend_signature`` and every batch and cache key.  The choice is
+    memoized per padded ``(V, E, k, ndev)`` shape (``kernels.autotune``),
+    so every graph of a shape bucket resolves to one tile.  Under
+    ``"auto"`` an explicit backend INSTANCE keeps its tile; ``"on"``
+    tunes it too.  The model is K1's when the fused update is on, K2's
+    otherwise.
+    """
+    mode = opts.resolved_autotune()
+    if mode == "off":
+        return opts
+    if mode == "auto" and not isinstance(opts.score_backend, str):
+        return opts
+    backend = opts.backend()
+    if getattr(backend, "name", None) != "cuda":
+        return opts
+    from ..kernels import autotune   # lazy: the model's numpy only
+    padded, _ = padded_view(graph, opts)
+    kernel = "fused" if opts.resolved_fused_update() == "on" else "scores"
+    warps, rows, _ = autotune.choose_tile_config(padded, cfg.k, ndev=ndev,
+                                                 kernel=kernel)
+    if (warps, rows) == (backend.warps, backend.rows):
+        return opts
+    return dataclasses.replace(opts, score_backend=dataclasses.replace(
+        backend, warps=warps, rows=rows))
+
+
+def tile_config(opts: EngineOptions, k: int):
+    """``{"warps", "rows", "smem_bytes"}`` of the CUDA backend's K1 (or,
+    with the fused update off, K2) launches at k -- the port's form of the
+    reference's ``{"tile_v", "tile_e", "k_pad"}`` -- or None for another
+    backend."""
+    backend = opts.backend()
+    if getattr(backend, "name", None) != "cuda":
+        return None
+    from ..kernels.spinner_scores import layout
+    form = "fused" if opts.resolved_fused_update() == "on" else "scores"
+    warps, rows, smem = layout(k, form, backend.tile(k, form))
+    return {"warps": warps, "rows": rows, "smem_bytes": smem}
 
 
 def pad_labels(labels: torch.Tensor, v_pad: int) -> torch.Tensor:
@@ -571,6 +634,7 @@ def make_fused_runner(graph: Graph, cfg, opts: EngineOptions) -> Callable:
     """
     chunk = opts.chunk_size or DEFAULT_CHUNK
     opts.resolved_device()          # no card and no device="cpu": raise now
+    opts = _autotuned(graph, cfg, opts)
 
     def runner(state: SpinnerState) -> SpinnerState:
         return _run_chunks(graph, cfg, state, opts, chunk, record=False)[0]
@@ -595,7 +659,8 @@ def run_chunked(graph: Graph, cfg, labels, loads, key: rng.Key,
     A ``callback`` forces recording on.  Runs on the options' device."""
     record = record or callback is not None
     state = init_state(labels, loads, key, device=opts.resolved_device())
-    return _run_chunks(graph, cfg, state, opts, chunk_size, record, callback)
+    return _run_chunks(graph, cfg, state, _autotuned(graph, cfg, opts),
+                       chunk_size, record, callback)
 
 
 def make_host_step(graph: Graph, cfg, opts: EngineOptions,
@@ -603,6 +668,7 @@ def make_host_step(graph: Graph, cfg, opts: EngineOptions,
     """``step(labels, loads, key)`` on the options' padded layout, for the
     per-iteration host loop.  Labels are carried PADDED between calls;
     ``step.v_pad`` is the padded vertex count."""
+    opts = _autotuned(graph, cfg, opts)
     bind, padded = make_bind(graph, cfg, opts, device)
     iterate = make_iterate(cfg, opts)
 
@@ -750,6 +816,7 @@ def make_frontier_runner(graph: Graph, cfg, opts: EngineOptions) -> Callable:
     padded layout; accepts a state and an active mask over the REAL
     vertex set, on the options' device."""
     opts.resolved_device()          # no card and no device="cpu": raise now
+    opts = _autotuned(graph, cfg, opts)
 
     def runner(state: SpinnerState, active):
         dev = _state_device(state, opts)
@@ -827,8 +894,9 @@ def _static_cfg(cfg) -> tuple:
 
 def backend_signature(backend) -> tuple:
     """A score backend's batching identity (the reference backends'
-    ``signature()``): its class and name."""
-    return (type(backend).__name__, getattr(backend, "name", None))
+    ``signature()``): its class, name and (the CUDA backend's) tile."""
+    return (type(backend).__name__, getattr(backend, "name", None),
+            getattr(backend, "warps", None), getattr(backend, "rows", None))
 
 
 def batch_bucket(n: int) -> int:
@@ -1331,6 +1399,7 @@ def _sharded_parts(graph: Graph, cfg, opts: EngineOptions, mesh,
                 f"backend's do); got {name!r}")
     comm = comm_mod.mesh_comm(mesh, axis)
     ndev = comm.ndev
+    opts = _autotuned(graph, cfg, opts, ndev=ndev)
     device = mesh_device(mesh)
     want = opts.resolved_device()
     if want.type != device.type:

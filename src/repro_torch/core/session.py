@@ -110,6 +110,7 @@ class _DeltaFast:
     tracker: _delta.DeltaTracker
     dd: _delta.DeviceDelta
     v_pad: int
+    opts: EngineOptions            # the autotuned options ``dd`` runs with
     merged: int = 0
 
 
@@ -365,7 +366,8 @@ class PartitionSession:
     def _prestage(self, graph: Graph) -> None:
         """Build the padded view and upload it, as ``_run`` would for
         ``graph`` (both are cached per graph object, which the later
-        ``adapt()`` receives)."""
+        ``adapt()`` receives), and resolve its tile (memoized per
+        bucket)."""
         self._note_upload(graph)
         if self._mesh is not None:
             _engine._sharded_parts(graph, self.cfg, self.options, self._mesh,
@@ -373,6 +375,18 @@ class PartitionSession:
             return
         padded, _ = _engine.padded_view(graph, self.options)
         padded.to_device(self._device)
+        self._tuned(graph)
+
+    def _tuned(self, graph: Optional[Graph] = None) -> EngineOptions:
+        """The session's options with the tile autotuner's pick for
+        ``graph`` (default: the base graph) at the session's device
+        count (``engine._autotuned``)."""
+        ndev = 1
+        if self._mesh is not None:
+            from ..launch.mesh import mesh_size
+            ndev = mesh_size(self._mesh, self.options.axis)
+        return _engine._autotuned(self._graph if graph is None else graph,
+                                  self.cfg, self.options, ndev=ndev)
 
     def resize(self, k_new: int, prev: Optional[np.ndarray] = None,
                seed: Optional[int] = None,
@@ -433,6 +447,7 @@ class PartitionSession:
             return False                # no slack to fill
         if callback is not None or record_history is True:
             return False                # per-iteration visibility paths
+        opts = self._tuned()
         if self._mesh is not None:
             from ..launch.mesh import mesh_size
             ndev = mesh_size(self._mesh, opts.axis)
@@ -464,6 +479,7 @@ class PartitionSession:
         self._note_upload(graph)
         padded, _ = _engine.padded_view(graph, self.options)
         tracker = _delta.DeltaTracker(graph)
+        opts = self._tuned(graph)
         if self._mesh is not None:
             from .distributed import segment_widths
             sg, _, _, bind, comm = _engine._sharded_parts(
@@ -471,10 +487,12 @@ class PartitionSession:
             dd = _delta.init_sharded_csr(
                 bind.deg_w, comm.rank,
                 segment_widths(padded, comm.ndev, pad=True))
-            return _DeltaFast(tracker=tracker, dd=dd, v_pad=sg.num_vertices)
+            return _DeltaFast(tracker=tracker, dd=dd, v_pad=sg.num_vertices,
+                              opts=opts)
         dd = _delta.init_single_csr(padded.to_device(self._device),
                                     graph.num_directed_entries)
-        return _DeltaFast(tracker=tracker, dd=dd, v_pad=padded.num_vertices)
+        return _DeltaFast(tracker=tracker, dd=dd, v_pad=padded.num_vertices,
+                          opts=opts)
 
     def _fast_prepare(self, e_src, e_dst, prev, record_history,
                       callback) -> Optional[tuple]:
@@ -528,7 +546,7 @@ class PartitionSession:
         graph, as far as every score sum goes).  The capacity is computed
         in float64 from the tracked total weight, then made a float32
         device scalar."""
-        cfg, dd, opts = self.cfg, fs.dd, self.options
+        cfg, dd, opts = self.cfg, fs.dd, fs.opts
         backend = opts.backend()
         args_of = (backend.fused_graph_args
                    if opts.resolved_fused_update() == "on"
@@ -559,7 +577,7 @@ class PartitionSession:
         if out is None:
             return None
         fs, state = out
-        cfg, opts = self.cfg, self.options
+        cfg, opts = self.cfg, fs.opts
         active = self._active_mask(fs.v_pad) if frontier else None
         if self._mesh is not None:
             state, hist = self._fast_sharded(fs, state, active)
@@ -623,7 +641,7 @@ class PartitionSession:
         ``engine.batch_signature``).  Reads the BASE graph (no
         pending-delta materialization)."""
         self._check_open()
-        opts = self.options
+        opts = self._tuned()
         padded, _ = _engine.padded_view(self._graph, opts)
         return (_engine._static_cfg(self.cfg),
                 _engine.backend_signature(opts.backend()),
@@ -658,8 +676,7 @@ class PartitionSession:
             if out is not None:
                 self._staged = None
                 fs, state = out
-                return state, self._fast_bind(fs, False), self.cfg, \
-                    self.options
+                return state, self._fast_bind(fs, False), self.cfg, fs.opts
             self._fallback_adapts += 1
             new_graph = add_edges(self.graph, e_src, e_dst)
             self._host_rebuilds += 1
@@ -668,7 +685,8 @@ class PartitionSession:
         elif self._staged is not None:
             staged, self._staged = self._staged, None
             self.graph = staged
-        graph, cfg, opts = self.graph, self.cfg, self.options
+        graph, cfg = self.graph, self.cfg
+        opts = self._tuned(graph)
         init = extend_labels(prev_arr, graph.num_vertices)
         labels, loads, key = prepare_init(graph, cfg, init,
                                           device=self._device)
@@ -890,9 +908,13 @@ class PartitionSession:
                     fs.tracker.total_weight if fs is not None
                     else float(graph.total_weight)),
             },
-            "score_backend": opts.backend().name,
-            "fused_update": opts.resolved_fused_update(),
         }
+        tuned = self._tuned()
+        d["score_backend"] = tuned.backend().name
+        d["fused_update"] = tuned.resolved_fused_update()
+        tile = _engine.tile_config(tuned, self.cfg.k)
+        if tile is not None:
+            d["tile_config"] = tile
         if self._last is not None:
             d["last"] = {"iterations": self._last.iterations,
                          "halted": self._last.halted,
@@ -905,7 +927,7 @@ class PartitionSession:
             from .distributed import comm_stats, shard_layout
             sg = shard_layout(padded, mesh_size(self._mesh, opts.axis),
                               pad=opts.pad == "bucket")
-            d["exchange"] = comm_stats(sg, self.cfg, opts)
+            d["exchange"] = comm_stats(sg, self.cfg, opts, graph=padded)
         return d
 
     # -- internals ---------------------------------------------------------

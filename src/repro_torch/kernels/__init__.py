@@ -4,8 +4,9 @@
 ``fused_update`` and its frontier variant ``fused_update_frontier``),
 ``pregel_combine`` the Pregel combine kernels'
 (``pregel_reduce`` and ``pregel_combine``), ``ref`` their plain versions,
-``ops`` the score-backend registry the engine uses.
+``ops`` the score-backend registry the engine uses, ``autotune`` the
+score kernels' tile autotuner.
 """
-from . import ops, pregel_combine, ref, spinner_scores
+from . import autotune, ops, pregel_combine, ref, spinner_scores
 
-__all__ = ["ops", "pregel_combine", "ref", "spinner_scores"]
+__all__ = ["autotune", "ops", "pregel_combine", "ref", "spinner_scores"]

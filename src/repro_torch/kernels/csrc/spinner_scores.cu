@@ -107,8 +107,11 @@ __device__ __forceinline__ float eq8_total(float s, float denom, float pen) {
 }
 
 // ---- row groups ----------------------------------------------------------
-// A warp owns a group of `rows` consecutive rows (up to 32; fewer as k
-// grows, down to one).  Its shared memory holds off (33 int64) and the
+// A warp owns a group of `rows` consecutive rows (1 to 32).  `rows` is a
+// launch argument: score_rows(k) / fused_rows<kSeeded>(k) are its caps
+// (as many rows as the group's buffers hold, fewer as k grows, down to
+// one) and spinner_scores.py's defaults.  Its shared memory holds off
+// (33 int64) and the
 // group's score rows, each row `ks = k | 1` floats apart (an odd stride,
 // so K1's epilogue, a lane per row, hits 32 distinct banks).  K2 holds
 // nothing else.  K1 also holds, for the group's selected rows (every row;
@@ -128,37 +131,45 @@ constexpr int kStaticSmem = 48 * 1024;  // above it, opt in per kernel
 
 __host__ __device__ inline int row_stride(int k) { return k | 1; }
 
-// K2's rows per group: as many as kScoreGroupBytes holds, 1 to a warp
-__host__ __device__ inline int score_rows(int k) {
+// K2's cap on rows per group: as many as kScoreGroupBytes holds, 1 to a
+// warp
+inline int score_rows(int k) {
   const int r = kScoreGroupBytes / (4 * row_stride(k));
   return r < 1 ? 1 : (r > kWarp ? kWarp : r);
 }
 
-__host__ __device__ inline int score_warp_bytes(int k) {
-  return kScoreFixedBytes + ((score_rows(k) * row_stride(k) * 4 + 15) & ~15);
+__host__ __device__ inline int score_warp_bytes(int k, int rows) {
+  return kScoreFixedBytes + ((rows * row_stride(k) * 4 + 15) & ~15);
 }
 
 template <bool kSeeded>
 __host__ __device__ inline int fused_bufs() { return kSeeded ? 3 : 2; }
 
-// rows per group: as many as kGroupBytes holds, between 1 and a warp
+// K1's cap on rows per group: as many as kGroupBytes holds, between 1
+// and a warp
 template <bool kSeeded>
-__host__ __device__ inline int fused_rows(int k) {
+inline int fused_rows(int k) {
   const int r = kGroupBytes / (fused_bufs<kSeeded>() * 4 * row_stride(k));
   return r < 1 ? 1 : (r > kWarp ? kWarp : r);
 }
 
 template <bool kSeeded>
-__host__ __device__ inline int fused_warp_bytes(int k) {
-  const int floats = fused_bufs<kSeeded>() * fused_rows<kSeeded>(k) *
-                     row_stride(k);
+__host__ __device__ inline int fused_warp_bytes(int k, int rows) {
+  const int floats = fused_bufs<kSeeded>() * rows * row_stride(k);
   return kWarpFixedBytes + ((floats * 4 + 15) & ~15);
 }
 
 template <bool kSeeded>
-inline size_t fused_smem(int k, int warps) {
+inline size_t fused_smem(int k, int warps, int rows) {
   return static_cast<size_t>((2 * k * 4 + 15) & ~15) +
-         static_cast<size_t>(warps) * fused_warp_bytes<kSeeded>(k);
+         static_cast<size_t>(warps) * fused_warp_bytes<kSeeded>(k, rows);
+}
+
+// A tile the kernels take: at least one warp, 1 to `cap` rows, and a
+// block's shared memory within the dynamic limit.
+inline bool tile_ok(int warps, int rows, int cap, size_t smem) {
+  return warps >= 1 && rows >= 1 && rows <= cap &&
+         smem <= static_cast<size_t>(kMaxSmem);
 }
 
 __device__ __forceinline__ void cp_async4(float* s, const float* g) {
@@ -289,7 +300,7 @@ __device__ __forceinline__ void fold_segment(
   __syncwarp();
 }
 
-// K2: the dense (V, k) score matrix, a group of score_rows(k) rows a warp
+// K2: the dense (V, k) score matrix, a group of `rows` rows a warp
 // (grid-stride).  The warp zeroes the group's score rows, folds the
 // group's entries into them, then writes them to out[base * k ..], which
 // is contiguous: element t of the group (row t / k, column t % k) goes
@@ -299,15 +310,14 @@ __device__ __forceinline__ void fold_segment(
 __global__ void spinner_scores_kernel(
     const long long* __restrict__ row_ptr, const int* __restrict__ dst,
     const float* __restrict__ w, const int* __restrict__ lookup,
-    float* __restrict__ out, int num_vertices, int k) {
+    float* __restrict__ out, int num_vertices, int k, int rows) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
   const int warps = blockDim.x / kWarp;
-  const int rows = score_rows(k);
   const int ks = row_stride(k);
   unsigned char* mine =
-      smem_raw + static_cast<size_t>(warp) * score_warp_bytes(k);
+      smem_raw + static_cast<size_t>(warp) * score_warp_bytes(k, rows);
   long long* off = reinterpret_cast<long long*>(mine);          // 33
   float* acc = reinterpret_cast<float*>(mine + kScoreFixedBytes);
   const int step_i = kWarp / k, step_j = kWarp % k;
@@ -361,18 +371,17 @@ __global__ void fused_update_kernel(
     const unsigned char* __restrict__ active, int* __restrict__ best_out,
     float* __restrict__ tot_best_out, float* __restrict__ tot_cur_out,
     float* __restrict__ m_out, int num_vertices, int num_real, int k,
-    float bonus, int degree_weighted) {
+    float bonus, int degree_weighted, int rows) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
   const int warps = blockDim.x / kWarp;
-  const int rows = fused_rows<kSeeded>(k);
   const int ks = row_stride(k);
   float* s_pen = reinterpret_cast<float*>(smem_raw);     // (k,) pen
   float* m_block = s_pen + k;                            // (k,) M(l)
   unsigned char* mine = smem_raw + ((2 * k * 4 + 15) & ~15) +
                         static_cast<size_t>(warp) *
-                            fused_warp_bytes<kSeeded>(k);
+                            fused_warp_bytes<kSeeded>(k, rows);
   long long* off = reinterpret_cast<long long*>(mine);          // 33
   long long* beg = reinterpret_cast<long long*>(mine + 264);    // 32
   int* sel = reinterpret_cast<int*>(mine + 520);                // 32
@@ -492,6 +501,38 @@ __global__ void fused_update_kernel(
     if (m_block[l] != 0.0f) atomicAdd(&m_out[l], m_block[l]);
 }
 
+// K1's kernel at a tile: allow its shared memory and size its grid.
+// Returns the grid (> 0) or a negated cudaError_t.
+template <bool kFrontier, bool kSeeded>
+int fused_grid(int num_vertices, int k, int warps, int rows) {
+  const size_t smem = fused_smem<kSeeded>(k, warps, rows);
+  if (!tile_ok(warps, rows, fused_rows<kSeeded>(k), smem))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = fused_update_kernel<kFrontier, kSeeded>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return csr::grid_for(kernel, (num_vertices + rows - 1) / rows,
+                       warps * kWarp, smem, warps);
+}
+
+// K2's kernel at a tile, as fused_grid.
+int scores_grid(int num_vertices, int k, int warps, int rows) {
+  const size_t smem = static_cast<size_t>(warps) * score_warp_bytes(k, rows);
+  if (!tile_ok(warps, rows, score_rows(k), smem))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  if (smem > static_cast<size_t>(kStaticSmem)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        spinner_scores_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return -static_cast<int>(err);
+  }
+  return csr::grid_for(spinner_scores_kernel,
+                       (num_vertices + rows - 1) / rows, warps * kWarp, smem,
+                       warps);
+}
+
 template <bool kFrontier, bool kSeeded>
 int launch_fused(const void* row_ptr, const void* dst, const void* w,
                  const void* d_row_ptr, const void* d_dst, const void* d_w,
@@ -500,20 +541,13 @@ int launch_fused(const void* row_ptr, const void* dst, const void* w,
                  const void* noise, const void* active, void* best,
                  void* tot_best, void* tot_cur, void* m, int num_vertices,
                  int num_real, int k, float bonus, int degree_weighted,
-                 int warps, void* stream) {
-  const int threads = warps * kWarp;
-  const size_t smem = fused_smem<kSeeded>(k, warps);
-  if (smem > static_cast<size_t>(kMaxSmem))
-    return static_cast<int>(cudaErrorInvalidValue);
+                 int warps, int rows, void* stream) {
+  const int grid = fused_grid<kFrontier, kSeeded>(num_vertices, k, warps,
+                                                  rows);
+  if (grid < 0) return -grid;
   auto kernel = fused_update_kernel<kFrontier, kSeeded>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int rows = fused_rows<kSeeded>(k);
-  const int grid = csr::grid_for(kernel, (num_vertices + rows - 1) / rows,
-                                 threads, smem, warps);
-  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, warps * kWarp, fused_smem<kSeeded>(k, warps, rows),
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const long long*>(row_ptr), static_cast<const int*>(dst),
       static_cast<const float*>(w), static_cast<const long long*>(d_row_ptr),
       static_cast<const int*>(d_dst), static_cast<const float*>(d_w),
@@ -523,35 +557,29 @@ int launch_fused(const void* row_ptr, const void* dst, const void* w,
       static_cast<const unsigned char*>(active), static_cast<int*>(best),
       static_cast<float*>(tot_best), static_cast<float*>(tot_cur),
       static_cast<float*>(m), num_vertices, num_real, k, bonus,
-      degree_weighted);
+      degree_weighted, rows);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// Every entry takes the tile (warps per block, rows per warp group) and
+// refuses, with cudaErrorInvalidValue, a tile outside 1 <= rows <= the
+// kernel's cap at k, warps >= 1 and the shared-memory limit.
+
 extern "C" int spinner_scores_csr(const void* row_ptr, const void* dst,
                                   const void* w, const void* lookup,
                                   void* out, int num_vertices, int k,
-                                  int warps, void* stream) {
-  const int threads = warps * kWarp;
-  const size_t smem = static_cast<size_t>(warps) * score_warp_bytes(k);
-  if (smem > static_cast<size_t>(kMaxSmem))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > static_cast<size_t>(kStaticSmem)) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        spinner_scores_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int rows = score_rows(k);
-  const int grid = csr::grid_for(spinner_scores_kernel,
-                                 (num_vertices + rows - 1) / rows, threads,
-                                 smem, warps);
-  spinner_scores_kernel<<<grid, threads, smem,
+                                  int warps, int rows, void* stream) {
+  const int grid = scores_grid(num_vertices, k, warps, rows);
+  if (grid < 0) return -grid;
+  spinner_scores_kernel<<<grid, warps * kWarp,
+                          static_cast<size_t>(warps) *
+                              score_warp_bytes(k, rows),
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const long long*>(row_ptr), static_cast<const int*>(dst),
       static_cast<const float*>(w), static_cast<const int*>(lookup),
-      static_cast<float*>(out), num_vertices, k);
+      static_cast<float*>(out), num_vertices, k, rows);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -564,11 +592,11 @@ extern "C" int fused_update_csr(const void* row_ptr, const void* dst,
                                 void* tot_best, void* tot_cur, void* m,
                                 int num_vertices, int num_real, int k,
                                 float bonus, int degree_weighted, int warps,
-                                void* stream) {
+                                int rows, void* stream) {
   return launch_fused<false, false>(
       row_ptr, dst, w, d_row_ptr, d_dst, d_w, labels, lookup, nullptr,
       deg_w, pen, noise, nullptr, best, tot_best, tot_cur, m, num_vertices,
-      num_real, k, bonus, degree_weighted, warps, stream);
+      num_real, k, bonus, degree_weighted, warps, rows, stream);
 }
 
 extern "C" int fused_update_seeded_csr(
@@ -576,11 +604,11 @@ extern "C" int fused_update_seeded_csr(
     const void* lookup, const void* acc_init, const void* deg_w,
     const void* pen, const void* noise, void* best, void* tot_best,
     void* tot_cur, void* m, int num_vertices, int num_real, int k,
-    float bonus, int degree_weighted, int warps, void* stream) {
+    float bonus, int degree_weighted, int warps, int rows, void* stream) {
   return launch_fused<false, true>(
       row_ptr, dst, w, nullptr, nullptr, nullptr, labels, lookup, acc_init,
       deg_w, pen, noise, nullptr, best, tot_best, tot_cur, m, num_vertices,
-      num_real, k, bonus, degree_weighted, warps, stream);
+      num_real, k, bonus, degree_weighted, warps, rows, stream);
 }
 
 extern "C" int fused_update_frontier_csr(
@@ -589,9 +617,25 @@ extern "C" int fused_update_frontier_csr(
     const void* labels, const void* lookup, const void* deg_w,
     const void* pen, const void* noise, const void* active, void* best,
     void* tot_best, void* tot_cur, void* m, int num_vertices, int k,
-    float bonus, int degree_weighted, int warps, void* stream) {
+    float bonus, int degree_weighted, int warps, int rows, void* stream) {
   return launch_fused<true, false>(
       row_ptr, dst, w, d_row_ptr, d_dst, d_w, labels, lookup, nullptr,
       deg_w, pen, noise, active, best, tot_best, tot_cur, m, num_vertices,
-      num_vertices, k, bonus, degree_weighted, warps, stream);
+      num_vertices, k, bonus, degree_weighted, warps, rows, stream);
+}
+
+// The grid a launch of `form` (0: spinner_scores_csr, 1: fused_update_csr,
+// 2: fused_update_seeded_csr, 3: fused_update_frontier_csr) would take at
+// this tile on the current device, or a negated cudaError_t; launches
+// nothing.  The autotuner's model reckons the same grid from the card's
+// constants, and chip_smoke.py holds the two equal.
+extern "C" int spinner_tile_grid(int form, int num_vertices, int k,
+                                 int warps, int rows) {
+  switch (form) {
+    case 0: return scores_grid(num_vertices, k, warps, rows);
+    case 1: return fused_grid<false, false>(num_vertices, k, warps, rows);
+    case 2: return fused_grid<false, true>(num_vertices, k, warps, rows);
+    case 3: return fused_grid<true, false>(num_vertices, k, warps, rows);
+    default: return -static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -35,7 +35,10 @@ engine's ``ShardBind`` and ``reduce_`` sums the aggregates over the ranks.
     score kernel writes the interior partial and the fused kernel's seeded
     form folds the frontier into it.  Its split form (the dense score kernel)
     reads no delta segment.  On CPU tensors its wrappers run the plain
-    versions.
+    versions.  Its frozen ``warps`` / ``rows`` fields are the kernels'
+    tile (``None``: today's layout); the engine's autotuner binds them
+    (``core.engine._autotuned``, ``kernels.autotune``), and every launch
+    takes them, each form's rows cut to that form's cap (``clip_tile``).
 
 All backends give bit-identical trajectories on the Eq. 3 weights (and on
 any weights whose sums are exact, such as halves): every score sum is
@@ -44,10 +47,10 @@ then exact in float32, whatever the order.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Union
+from typing import Callable, Optional, Union
 
 from . import ref
-from .spinner_scores import (fused_update, fused_update_frontier,
+from .spinner_scores import (clip_tile, fused_update, fused_update_frontier,
                              fused_update_seeded, spinner_scores)
 
 
@@ -167,14 +170,26 @@ class TorchScatterBackend:
 
 @dataclasses.dataclass(frozen=True)
 class CudaCsrBackend:
-    """ComputeScores and the fused vertex update by the CSR kernels."""
+    """ComputeScores and the fused vertex update by the CSR kernels, at
+    the tile ``(warps, rows)`` (``None``: the kernels' default)."""
 
     name: str = "cuda"
+    warps: Optional[int] = None
+    rows: Optional[int] = None
     fused_auto = True
 
+    def tile(self, k: int, form: str):
+        """The ``(warps, rows)`` a ``form`` launch at ``k`` takes (None
+        when the backend carries no tile)."""
+        if self.warps is None and self.rows is None:
+            return None
+        return clip_tile(k, form, (self.warps, self.rows))
+
     def make_scores(self, k: int) -> Callable:
+        tile = self.tile(k, "scores")
+
         def scores(labels, row_ptr, dst, w):
-            return spinner_scores(labels, row_ptr, dst, w, k)
+            return spinner_scores(labels, row_ptr, dst, w, k, tile=tile)
         return scores
 
     def graph_args(self, csr) -> tuple:
@@ -189,6 +204,7 @@ class CudaCsrBackend:
         from ..core.engine import make_update_parts   # lazy: no cycle
         _, finish = make_update_parts(
             k, degree_weighted=degree_weighted, current_bonus=current_bonus)
+        tile = self.tile(k, "frontier" if frontier else "fused")
 
         def fused(labels, loads, noise, u, bind):
             pen = loads / bind.capacity
@@ -196,11 +212,11 @@ class CudaCsrBackend:
             if frontier:
                 parts = fused_update_frontier(
                     labels, *base, bind.deg_w, pen, noise, bind.valid, k,
-                    current_bonus, degree_weighted, delta)
+                    current_bonus, degree_weighted, delta, tile=tile)
             else:
                 parts = fused_update(labels, *base, bind.deg_w, pen, noise,
                                      bind.num_real, k, current_bonus,
-                                     degree_weighted, delta)
+                                     degree_weighted, delta, tile=tile)
             out = finish(*parts, labels, bind.deg_w, loads, u, bind.valid,
                          bind.capacity)
             if frontier:
@@ -214,8 +230,11 @@ class CudaCsrBackend:
     # ---- the sharded forms (one rank's shard) ----------------------------
 
     def make_sharded_scores(self, k: int, v_local: int) -> Callable:
+        tile = self.tile(k, "scores")
+
         def scores(lookup, labels, bind):
-            return spinner_scores(labels, *bind.score, k, lookup=lookup)
+            return spinner_scores(labels, *bind.score, k, lookup=lookup,
+                                  tile=tile)
         return scores
 
     def sharded_graph_args(self, shard) -> tuple:
@@ -226,12 +245,15 @@ class CudaCsrBackend:
         """The score kernel twice: over the interior segment against the
         label shard (the overlap's interior partial), then over the
         frontier segment against the lookup, added to it."""
+        tile = self.tile(k, "scores")
+
         def interior(labels_local, bind):
-            return spinner_scores(labels_local, *bind.score[:3], k)
+            return spinner_scores(labels_local, *bind.score[:3], k,
+                                  tile=tile)
 
         def frontier(partial, lookup, labels, bind):
             return partial + spinner_scores(labels, *bind.score[3:], k,
-                                            lookup=lookup)
+                                            lookup=lookup, tile=tile)
         return interior, frontier
 
     def sharded_graph_args_split(self, shard) -> tuple:
@@ -245,12 +267,13 @@ class CudaCsrBackend:
         from ..core.engine import make_update_parts   # lazy: no cycle
         _, finish = make_update_parts(
             k, degree_weighted=degree_weighted, current_bonus=current_bonus)
+        tile = self.tile(k, "fused")
 
         def fused(lookup, labels, loads, noise, u, bind, reduce_):
             parts = fused_update(labels, *bind.score, bind.deg_w,
                                  loads / bind.capacity, noise,
                                  bind.num_real_local, k, current_bonus,
-                                 degree_weighted, lookup=lookup)
+                                 degree_weighted, lookup=lookup, tile=tile)
             return finish(*parts, labels, bind.deg_w, loads, u, bind.valid,
                           bind.capacity, reduce_)
         return fused
@@ -268,13 +291,14 @@ class CudaCsrBackend:
         _, finish = make_update_parts(
             k, degree_weighted=degree_weighted, current_bonus=current_bonus)
         interior, _ = self.make_sharded_scores_split(k, v_local)
+        tile = self.tile(k, "seeded")
 
         def frontier(partial, lookup, labels, loads, noise, u, bind,
                      reduce_):
             parts = fused_update_seeded(
                 labels, *bind.score[3:], bind.deg_w, loads / bind.capacity,
                 noise, bind.num_real_local, k, current_bonus,
-                degree_weighted, partial, lookup=lookup)
+                degree_weighted, partial, lookup=lookup, tile=tile)
             return finish(*parts, labels, bind.deg_w, loads, u, bind.valid,
                           bind.capacity, reduce_)
         return interior, frontier

@@ -68,6 +68,7 @@ the tenant's options ask for ``device="cpu"`` (the session's own rule).
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
@@ -130,7 +131,9 @@ class KSweepPrecompile:
     The reference compiles the new-k program here, off the critical path.
     Eager PyTorch compiles nothing per k (the kernels build once per
     source), so the scan keeps its ``warmed`` set and ``compiled`` stays
-    0: the policy is kept so a fleet's policy stats read the same."""
+    0: the policy is kept so a fleet's policy stats read the same.  What
+    it does warm is the tile autotuner's pick at the new k (memoized per
+    bucket), as the reference's warm resolves it."""
 
     name = "ksweep_precompile"
 
@@ -147,6 +150,10 @@ class KSweepPrecompile:
                 if key in self.warmed:
                     continue
                 self.warmed.add(key)
+                sess = t.session
+                if sess._mesh is None:
+                    _engine._autotuned(sess._graph, dataclasses.replace(
+                        sess.cfg, k=tk.payload["k"]), sess.options)
                 return                # one (tenant, k) per round
 
     def stats(self) -> dict:

@@ -259,8 +259,8 @@ def test_imports_neither_jax_nor_reference():
     sharded layout, distributed PageRank, placement, the cluster runtime
     and its worker, the LLM configs, the six model families, optimizer,
     data, train steps and both LLM launchers too, the sharding rules and
-    constraints, the dry run and its op analysis), its examples and
-    chip_smoke.py load without JAX, ``repro`` or msgpack."""
+    constraints, the dry run and its op analysis, the tile autotuner), its
+    examples and chip_smoke.py load without JAX, ``repro`` or msgpack."""
     code = (
         "import sys; sys.path.insert(0, 'src'); sys.path.insert(0, '.')\n"
         "sys.path.insert(0, 'examples')\n"
@@ -284,6 +284,7 @@ def test_imports_neither_jax_nor_reference():
         "import repro_torch.models.vlm, repro_torch.parallel\n"
         "import repro_torch.parallel.rules, repro_torch.launch.dryrun\n"
         "import repro_torch.launch.hlo_analysis\n"
+        "import repro_torch.kernels.autotune\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'repro', 'msgpack')]\n"
         "assert not bad, bad\n")

@@ -22,14 +22,14 @@ from repro_torch.core import (EngineOptions, SpinnerConfig, delta,
                               distributed, engine, generators, open_session,
                               partition, prepare_init)
 from repro_torch.core.graph import _finish
-from repro_torch.kernels import ref
+from repro_torch.kernels import autotune, ref
 from repro_torch.kernels.ops import CudaCsrBackend
 from repro_torch.kernels.pregel_combine import pregel_combine, pregel_reduce
-from repro_torch.kernels.spinner_scores import (fused_update,
+from repro_torch.kernels.spinner_scores import (clip_tile, fused_update,
                                                 fused_update_frontier,
                                                 fused_update_seeded,
                                                 scores_layout,
-                                                spinner_scores)
+                                                spinner_scores, tile_grid)
 from repro_torch.launch.mesh import make_partition_mesh
 
 pytestmark = pytest.mark.gpu
@@ -859,6 +859,142 @@ def test_float_weights_match_plain(cuda, n, scale):
                                          lookup=labels, acc_init=partial)
             _hold_float(got, want, x[off:off + vl], real[off:off + vl], lab,
                         sh.deg_w, dyadic, weighted)
+
+
+# ---- the autotuner's tiles: every candidate against the plain versions
+
+def _tiles(k):
+    """Every tile the autotuner may bind at k (either kernel's
+    candidates), and the smallest, one warp of one row."""
+    return sorted(set(autotune.candidates(k, "fused")
+                      + autotune.candidates(k, "scores") + [(1, 1)]))
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("k", KS)
+def test_candidate_tiles_match_plain(cuda, k, case):
+    """Each tile, cut to each form as the backend cuts it (``clip_tile``),
+    gives K2 and K1's three forms bit for bit the plain versions' outputs
+    on the Eq. 3 weights (and weight-0 pads), each launch at that tile."""
+    gen = np.random.default_rng(3 * k + len(case))
+    rp, dst, w = _csr_case(case, gen)
+    v = rp.size - 1
+    up = (lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda))
+    labels = up(_labels_of("random", gen, v, k))
+    rp_t, dst_t, w_t = up(rp), up(dst), up(w)
+    src_t = ref.csr_src(rp_t)
+    deg_w = torch.zeros(v, dtype=torch.float32, device=cuda).index_add_(
+        0, src_t.long(), w_t)
+    pen = up(gen.uniform(0.8, 1.2, k).astype(np.float32))
+    noise = rng.uniform(rng.PRNGKey(k), (v, k), 0.0, 1e-7, device=cuda)
+    valid = up(gen.random(v) < 0.3)
+    acc_init = up(gen.integers(0, 4, (v, k)).astype(np.float32))
+    common = (deg_w, pen, noise)
+    tail = (k, 1e-6, True)
+    num_real = max(v - 3, 0)
+    want = {
+        "scores": ref.spinner_scores_ref(labels, src_t, dst_t, w_t, v, k),
+        "fused": ref.fused_propose_ref(labels, src_t, dst_t, w_t, *common,
+                                       num_real, *tail),
+        "frontier": ref.frontier_propose_ref(labels, src_t, dst_t, w_t,
+                                             *common, valid, *tail),
+        "seeded": ref.fused_propose_ref(labels, src_t, dst_t, w_t, *common,
+                                        num_real, *tail, acc_init=acc_init)}
+    base = (labels, rp_t, dst_t, w_t)
+    for tile in _tiles(k):
+        t = {form: clip_tile(k, form, tile) for form in want}
+        got = {
+            "scores": spinner_scores(*base, k, tile=t["scores"]),
+            "fused": fused_update(*base, *common, num_real, *tail,
+                                  tile=t["fused"]),
+            "frontier": fused_update_frontier(*base, *common, valid, *tail,
+                                              tile=t["frontier"]),
+            "seeded": fused_update_seeded(*base, *common, num_real, *tail,
+                                          acc_init, tile=t["seeded"])}
+        assert fused_update_seeded.last_tile[:2] == t["seeded"]
+        assert spinner_scores.last_tile[:2] == t["scores"]
+        assert _bits_equal(got["scores"], want["scores"]), tile
+        for form in ("fused", "frontier", "seeded"):
+            assert all(_bits_equal(a, b)
+                       for a, b in zip(got[form], want[form])), (tile, form)
+
+
+@pytest.mark.parametrize("scale", [0.5, 0.3])
+def test_candidate_tiles_on_float_weights(cuda, scale):
+    """``test_float_weights_match_plain``'s claims hold at every tile: on
+    halved weights bitwise equal to the plain versions, on weights times
+    0.3 within ``_hold_float``'s tolerances (K2 within rtol 1e-6) -- a
+    tile changes where the fold's batches cut a row, so such sums round
+    in another order than the default tile's."""
+    g, num_real = _scaled_graph(20_000, scale)
+    csr = g.to_device(cuda)
+    v, k = g.num_vertices, 6
+    dyadic = scale == 0.5
+    gen = np.random.default_rng(7)
+    labels = torch.from_numpy(gen.integers(0, k, v).astype(np.int32)
+                              ).to(cuda)
+    loads = torch.zeros(k, device=cuda).index_add_(0, labels.long(),
+                                                   csr.deg_w)
+    pen = loads / torch.tensor(1.05 * g.total_weight / k, device=cuda)
+    noise = rng.uniform(rng.PRNGKey(7), (v, k), 0.0, 1e-7, device=cuda)
+    bonus = torch.nn.functional.one_hot(labels.long(), k).to(
+        torch.float32) * float(np.float32(1e-6))
+    real = torch.arange(v, device=cuda) < num_real
+    base = (csr.row_ptr, csr.dst, csr.weight)
+    plain_scores = ref.spinner_scores_ref(labels, csr.src, csr.dst,
+                                          csr.weight, v, k)
+    x = (plain_scores / torch.clamp(csr.deg_w, min=1.0)[:, None] - pen
+         + noise + bonus)
+    want = ref.fused_propose_ref(labels, csr.src, csr.dst, csr.weight,
+                                 csr.deg_w, pen, noise, num_real, k, 1e-6,
+                                 True)
+    for tile in _tiles(k):
+        scores = spinner_scores(labels, *base, k,
+                                tile=clip_tile(k, "scores", tile))
+        if dyadic:
+            assert _bits_equal(scores, plain_scores), tile
+        else:
+            assert torch.allclose(scores, plain_scores, rtol=1e-6, atol=0.0)
+        got = fused_update(labels, *base, csr.deg_w, pen, noise, num_real,
+                           k, 1e-6, True, tile=clip_tile(k, "fused", tile))
+        _hold_float(got, want, x, real, labels, csr.deg_w, dyadic, True)
+
+
+@pytest.mark.parametrize("k", [2, 32, 130, 512])
+def test_tile_grid_matches_model(cuda, k):
+    """The autotuner's schedule has the grid the card's occupancy query
+    gives every candidate (``csr::grid_for``), for both kernels."""
+    deg = np.full(2_000_000, 16)
+    for kernel in autotune.KERNELS:
+        for warps, rows in autotune.candidates(k, kernel):
+            model = autotune.slot_features(deg, warps, rows, k, kernel)
+            assert tile_grid(kernel, deg.size, k, (warps, rows)) \
+                == model["grid"], (kernel, warps, rows)
+
+
+def test_partition_under_autotune_on_card_matches_cpu(cuda):
+    """``partition`` on the card under every autotune mode, and at two
+    pinned tiles, equals the CPU run label for label; the tile the run
+    launched is the one the options resolve to."""
+    g = generators.powerlaw_ba(3000, 6, seed=9)
+    cfg = SpinnerConfig(k=8, seed=3)
+    want = partition(g, cfg, engine="fused", record_history=False,
+                     device="cpu")
+    for kw in (dict(autotune="off"), dict(autotune="on"), dict(),
+               dict(score_backend=CudaCsrBackend(warps=4, rows=8)),
+               dict(score_backend=CudaCsrBackend(warps=16, rows=1),
+                    fused_update="off")):
+        opts = EngineOptions(device=cuda, **kw)
+        got = partition(g, cfg, engine="fused", record_history=False,
+                        options=opts)
+        np.testing.assert_array_equal(got.labels, want.labels)
+        np.testing.assert_array_equal(got.loads, want.loads)
+        assert (got.iterations, got.halted) == (want.iterations, want.halted)
+        tuned = engine._autotuned(g, cfg, opts)
+        tile = engine.tile_config(tuned, cfg.k)
+        last = (fused_update if tuned.resolved_fused_update() == "on"
+                else spinner_scores).last_tile
+        assert last == (tile["warps"], tile["rows"], tile["smem_bytes"])
 
 
 def test_halved_weights_partition_matches_cpu(cuda):
