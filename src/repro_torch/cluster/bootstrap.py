@@ -38,6 +38,14 @@ Departures from the reference, each for the store:
 * **Deletion.**  ``delete_key`` deletes one exact key, so a handle keeps
   the keys it wrote, and ``kv_delete(prefix)`` deletes this process's
   keys under ``prefix``: every process collects its own garbage.
+* **Leaving.**  The reference's coordinator outlives its clients'
+  barrier.  A process here may host the store itself (:func:`serve_store`
+  in a process that also joins the cluster), and the store dies with it.
+  So ``shutdown`` counts processes out: a peer adds one to ``EXIT_KEY``
+  and leaves, the host waits (at most ``rpc_timeout``) until every
+  process has counted itself out.  Every peer calls ``shutdown`` only
+  after its last ``barrier`` returned, so none then still needs the
+  store.
 * **Meshes.**  A process drives one device (the port is SPMD), so there
   is no ``devices_per_process`` (the reference's forced host devices) and
   the local mesh is a one-rank mesh; the process-spanning one needs a process
@@ -55,6 +63,7 @@ import socket
 import subprocess
 import sys
 import time
+import weakref
 from datetime import timedelta
 from typing import Callable, Dict, List, Optional
 
@@ -68,6 +77,13 @@ REPO_SRC = os.path.dirname(os.path.dirname(os.path.dirname(
 # libuv server's 8 MiB payload limit
 CHUNK_BYTES = 4 << 20
 _WHOLE, _CHUNKED = b"v", b"c"
+# every process adds one here in ``shutdown``; the last to count itself
+# out sets the release key the store's host waits on
+EXIT_KEY = "__exit__"
+
+# the stores this process serves, by (host, port); weak, so a store still
+# dies with its last reference
+_SERVED: "weakref.WeakValueDictionary" = weakref.WeakValueDictionary()
 
 
 # ---------------------------------------------------------------------------
@@ -97,15 +113,25 @@ class ClusterConfig:
 
 
 class PeerLost(RuntimeError):
-    """A blocking store read timed out -- a peer is presumed dead."""
+    """A blocking store read timed out, or lost the store -- a peer (or
+    the store's host) is presumed dead."""
 
 
 def serve_store(timeout: float = 300.0,
                 host: str = "127.0.0.1") -> dist.TCPStore:
     """The master ``TCPStore`` on a port the OS picks (``.port``); it
-    serves for as long as the returned object lives."""
-    return dist.TCPStore(host, 0, is_master=True, wait_for_workers=False,
-                         timeout=timedelta(seconds=timeout))
+    serves for as long as the returned object lives.  A handle of this
+    process on that address and port is the store's host (see
+    ``ClusterHandle.shutdown``)."""
+    store = dist.TCPStore(host, 0, is_master=True, wait_for_workers=False,
+                          timeout=timedelta(seconds=timeout))
+    _SERVED[(host, store.port)] = store
+    return store
+
+
+def _serves(cfg: ClusterConfig) -> bool:
+    """Whether this process serves the store ``cfg`` connects to."""
+    return (cfg.coordinator_address, cfg.port) in _SERVED
 
 
 class ClusterHandle:
@@ -117,9 +143,14 @@ class ClusterHandle:
     and the process-spanning meshes.
     """
 
-    def __init__(self, cfg: ClusterConfig, store=None):
+    def __init__(self, cfg: ClusterConfig, store=None,
+                 hosts_store: Optional[bool] = None):
         self.cfg = cfg
         self.store = store
+        # the process whose store this is leaves last (``shutdown``);
+        # None: it is the host when this process serves ``cfg``'s store
+        self.hosts_store = _serves(cfg) if hosts_store is None \
+            else hosts_store
         self.process_id = cfg.process_id
         self.num_processes = cfg.num_processes
         # called between blocking-wait slices in kv_get (the worker binds
@@ -127,6 +158,7 @@ class ClusterHandle:
         # slow its peers are
         self.on_wait: Optional[Callable[[], None]] = None
         self._written: List[str] = []       # keys this process set
+        self._group = False                 # global_mesh built the group
 
     # -- meshes ------------------------------------------------------------
 
@@ -149,6 +181,7 @@ class ClusterHandle:
             dist.init_process_group(
                 backend, store=dist.PrefixStore("pg", self._store()),
                 rank=self.process_id, world_size=self.num_processes)
+            self._group = True
         return make_partition_mesh(axis=axis, device=self.cfg.device)
 
     # -- the store ---------------------------------------------------------
@@ -166,7 +199,8 @@ class ClusterHandle:
 
     def _wait(self, key: str, timeout: Optional[float]) -> None:
         """Block until ``key`` exists: the full budget waited in
-        ``poll_slice``-long slices with ``on_wait()`` between them."""
+        ``poll_slice``-long slices with ``on_wait()`` between them.  A
+        lost connection to the store raises ``PeerLost`` at once."""
         store = self._store()
         total = self.cfg.rpc_timeout if timeout is None else timeout
         deadline = time.monotonic() + total
@@ -176,16 +210,18 @@ class ClusterHandle:
             if remaining <= 0:
                 raise PeerLost(f"kv_get({key!r}) timed out after "
                                f"{total}s: {err}") from err
-            t_slice = time.monotonic()
             try:
                 store.wait([key], timedelta(
                     seconds=min(self.cfg.poll_slice, remaining)))
                 return
-            except dist.DistError as e:       # the slice expired, or
-                err = e                       # the store is gone
-                # a non-timeout failure returns at once: don't spin hot
-                if time.monotonic() - t_slice < 0.05:
-                    time.sleep(0.05)
+            # torch 2.11 and 2.13 alike: a slice that runs out raises
+            # DistStoreError ("wait timeout"), a store whose host is gone
+            # DistNetworkError ("Failed to recv" / "Broken pipe")
+            except dist.DistNetworkError as e:
+                raise PeerLost(f"kv_get({key!r}): the store is lost: "
+                               f"{e}") from e
+            except dist.DistStoreError as e:
+                err = e
             if self.on_wait is not None:
                 self.on_wait()
 
@@ -274,28 +310,50 @@ class ClusterHandle:
             raise PeerLost(f"barrier({name!r}) timed out: {e}") from e
 
     def shutdown(self) -> None:
-        """Drop the connection to the store (and any process group
-        ``global_mesh`` built)."""
-        if dist.is_initialized():
+        """Leave the cluster: drop any process group ``global_mesh`` built
+        and the connection to the store.  A peer counts itself out under
+        ``EXIT_KEY`` and returns at once; the store's host counts itself
+        out, then waits until every process has (at most ``rpc_timeout``)
+        before it leaves, so its store outlives every peer's last
+        ``barrier``.  Never raises."""
+        if not self.hosts_store:
+            self._leave_group()
+        if self.store is not None:
+            try:
+                if self.store.add(f"{EXIT_KEY}/count", 1) \
+                        == self.num_processes:
+                    self.store.set(f"{EXIT_KEY}/done", b"1")
+                elif self.hosts_store:
+                    self._wait(f"{EXIT_KEY}/done", None)
+            except (PeerLost, dist.DistError):
+                pass        # the store is lost, or a peer never counted out
+            self.store = None
+        if self.hosts_store:
+            self._leave_group()
+
+    def _leave_group(self) -> None:
+        if self._group and dist.is_initialized():
             try:
                 dist.destroy_process_group()
             except Exception:
                 pass
-        self.store = None
+        self._group = False
 
 
-def bootstrap(cfg: ClusterConfig, store=None) -> ClusterHandle:
+def bootstrap(cfg: ClusterConfig, store=None,
+              hosts_store: Optional[bool] = None) -> ClusterHandle:
     """Connect this process to the cluster's store and return the handle.
 
     ``store`` is used as given (a test's own store); otherwise a process
     of a cluster of more than one connects a client ``TCPStore`` to
     ``cfg.coordinator``.  A one-process cluster has no store: the worker
-    loop needs none at world size 1."""
+    loop needs none at world size 1.  ``hosts_store`` gives the handle's
+    role in ``shutdown`` (None: detected, see ``serve_store``)."""
     if store is None and cfg.num_processes > 1:
         store = dist.TCPStore(
             cfg.coordinator_address, cfg.port, is_master=False,
             timeout=timedelta(seconds=cfg.rpc_timeout))
-    return ClusterHandle(cfg, store)
+    return ClusterHandle(cfg, store, hosts_store)
 
 
 def free_port() -> int:

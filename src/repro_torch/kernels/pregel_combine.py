@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from . import _build, ref
+from .ref import INF_I32  # noqa: F401  (the reference keeps it here)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _REDUCE = (_I, [_P, _P, _P, _P, _P, _I, _I, _P])

@@ -12,12 +12,14 @@ of a host scalar divisor, the reference divides.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from ..models.common import tree_map
+
+PyTree = Any
 
 BLOCK = 256
 
@@ -59,7 +61,7 @@ def _map_compressed(fn, comp, *rest):
     return type(comp)(_map_compressed(fn, *xs) for xs in zip(comp, *rest))
 
 
-def compress_tree(grads, errors=None):
+def compress_tree(grads: PyTree, errors: Optional[PyTree] = None):
     """Quantize a gradient tree, carrying error feedback.
 
     Returns (compressed_tree, new_errors): the caller all-reduces the int8
@@ -76,7 +78,7 @@ def compress_tree(grads, errors=None):
     return comp, new_errors
 
 
-def decompress_tree(comp, like):
+def decompress_tree(comp, like: PyTree) -> PyTree:
     return _map_compressed(
         lambda c, g: decompress(c, g.shape).to(g.dtype), comp, like)
 

@@ -18,6 +18,10 @@ cases are in ``test_torch_durability.py``):
 * the store: sliced waits beat between slices, an exhausted deadline is
   ``PeerLost``, deletes are best effort, values over the payload cap
   travel in chunks -- on a real ``TCPStore`` (port 0);
+* leaving: a process that hosts the store leaves last in ``shutdown``
+  (a peer still between wait slices passes its barrier), within
+  ``rpc_timeout``; a peer only counts itself out; a lost store raises
+  ``PeerLost`` at once;
 * ``make_partition_mesh(devices=)``; the worker's K2 scores over its rows
   equal to the reference's host scatter, on halved weights too; the
   kernel build waiting for a concurrent one.
@@ -49,7 +53,8 @@ from repro_torch.cluster import (ClusterConfig, ClusterDeployment,
                                  restore_session, save_snapshot,
                                  slow_worker_at, snapshot_steps,
                                  write_edge_shards)
-from repro_torch.cluster.bootstrap import CHUNK_BYTES, serve_store
+from repro_torch.cluster.bootstrap import (CHUNK_BYTES, EXIT_KEY, bootstrap,
+                                           serve_store)
 from repro_torch.cluster.worker import owned_csr
 from repro_torch.core import (EngineOptions, SpinnerConfig, generators,
                               metrics)
@@ -571,6 +576,97 @@ class TestKvGetSlicing:
         assert not any(t.is_alive() for t in threads)
         for o in out:
             np.testing.assert_array_equal(o, np.float32([3, 1.5]))
+
+
+def _client(master, timeout=60.0):
+    return dist.TCPStore("127.0.0.1", master.port, is_master=False,
+                         timeout=timedelta(seconds=timeout))
+
+
+class TestLeaving:
+    """A process that hosts the store leaves last: the port's counterpart
+    of the reference's coordinator outliving its clients' barrier."""
+
+    def test_host_outlives_a_peer_between_wait_slices(self):
+        master = serve_store()
+        host = _handle(_client(master), pid=0, rpc_timeout=10.0)
+        peer = _handle(_client(master), pid=1, rpc_timeout=10.0)
+        host.hosts_store, peer.hosts_store = True, False
+        between = threading.Event()
+
+        def between_slices():
+            between.set()
+            time.sleep(10 * peer.cfg.poll_slice)
+
+        peer.on_wait = between_slices
+        errors = []
+
+        def run(h, after=None):
+            try:
+                if after is not None:   # the host passes the barrier while
+                    assert after.wait(10)   # the peer is between slices
+                h.barrier("done")
+                h.shutdown()
+            except Exception as e:      # read back on the main thread
+                errors.append((h.process_id, e))
+
+        threads = [threading.Thread(target=run, args=(peer,)),
+                   threading.Thread(target=run, args=(host, between))]
+        for t in threads:
+            t.start()
+        threads[1].join(30)
+        assert not threads[1].is_alive()
+        del master                      # the host process exits
+        threads[0].join(30)
+        assert not threads[0].is_alive()
+        assert errors == []
+
+    def test_lost_store_raises_at_once(self):
+        master = serve_store()
+        h = _handle(_client(master), rpc_timeout=60.0, poll_slice=5.0)
+        del master
+        t0 = time.monotonic()
+        with pytest.raises(PeerLost, match="lost"):
+            h.kv_get("x")
+        assert time.monotonic() - t0 < 2
+        with pytest.raises(PeerLost, match="barrier"):
+            h.barrier("done")
+
+    def test_host_waits_at_most_rpc_timeout(self):
+        master = serve_store()
+        host = _handle(_client(master), rpc_timeout=0.5)
+        host.hosts_store = True
+        t0 = time.monotonic()
+        host.shutdown()                 # the peer never counts itself out
+        assert 0.5 <= time.monotonic() - t0 < 5
+        assert host.store is None
+        assert master.add(f"{EXIT_KEY}/count", 0) == 1
+
+    @pytest.mark.parametrize("host_alive", [True, False])
+    def test_a_peer_only_counts_itself_out(self, host_alive):
+        master = serve_store()
+        peer = _handle(_client(master), pid=1, rpc_timeout=60.0)
+        if not host_alive:
+            del master
+        t0 = time.monotonic()
+        peer.shutdown()
+        assert time.monotonic() - t0 < 2
+        assert peer.store is None
+        if host_alive:
+            assert master.add(f"{EXIT_KEY}/count", 0) == 1
+            assert not master.check([f"{EXIT_KEY}/done"])
+
+    def test_the_serving_process_is_the_host(self):
+        master = serve_store()
+        cfg = ClusterConfig(port=master.port, num_processes=2)
+        assert bootstrap(cfg).hosts_store
+        assert not bootstrap(cfg, hosts_store=False).hosts_store
+        assert not bootstrap(ClusterConfig(port=master.port + 1),
+                             ).hosts_store
+        port = master.port
+        del master                      # the registry does not keep it
+        assert not ClusterHandle(ClusterConfig(
+            port=port, num_processes=2)).hosts_store
 
 
 # ---------------------------------------------------------------------------
