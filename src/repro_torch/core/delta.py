@@ -57,6 +57,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from ..runtime import trace
 from .graph import DeviceCSR, Graph
 
 
@@ -403,9 +404,10 @@ def apply_batch(dd: DeviceDelta, plan: BatchPlan, commit: Callable,
         own = (host[0] >= lo) & (host[0] < lo + dd.v_per_dev)
         host = (host[0][own] - np.int32(lo), host[1][own], host[2][own])
     dev = dd.deg_w.device
-    new = tuple(torch.from_numpy(a).to(dev) for a in host)
-    src, dst, w, row_ptr, deg_w = merge_run(
-        (dd.src, dd.dst, dd.w), new, dd.deg_w)
+    with trace.span("delta.merge", n=host[0].size):
+        new = tuple(torch.from_numpy(a).to(dev) for a in host)
+        src, dst, w, row_ptr, deg_w = merge_run(
+            (dd.src, dd.dst, dd.w), new, dd.deg_w)
     commit()
     out = dataclasses.replace(dd, src=src, dst=dst, w=w, row_ptr=row_ptr,
                               deg_w=deg_w, next_slot=dd.next_slot,
@@ -425,12 +427,14 @@ def apply_delta(tracker: DeltaTracker, dd: DeviceDelta, src, dst,
     """
     src = np.asarray(src, np.int64)
     dst = np.asarray(dst, np.int64)
-    plan = tracker.plan(src, dst)
+    with trace.span("delta.ledger", n=src.size):
+        plan = tracker.plan(src, dst)
     nbytes = 0
     if plan.num_entries:
         commit = plan_slots(dd, plan)
         if commit is None:
             return None
         dd, nbytes = apply_batch(dd, plan, commit, merge_run)
-    tracker.commit(plan)
+    with trace.span("delta.ledger", n=src.size):
+        tracker.commit(plan)
     return dd, plan, nbytes

@@ -64,6 +64,7 @@ import torch
 from .. import rng
 from ..kernels import ops
 from ..kernels.ref import propose_ref
+from ..runtime import trace
 from .graph import Graph, pad_graph, shape_bucket
 
 DEFAULT_CHUNK = 32
@@ -383,23 +384,26 @@ def make_update_parts(k: int, *, degree_weighted: bool,
     def finish(best, tot_best, tot_cur, m_partial, labels, deg_w, loads,
                u, valid, C, reduce_=None):
         red = reduce_ if reduce_ is not None else (lambda parts: parts)
-        want = (best != labels) & valid
-        # ---- ComputeMigrations (Eq. 11-12) -----------------------------
-        M, = red([m_partial])                                     # aggregator
-        R = torch.clamp(C - loads, min=0.0)                       # Eq. 11
-        p = torch.clamp(R / torch.clamp(M, min=1e-9), 0.0, 1.0)
-        migrate = want & (u < p[best.long()])                     # Eq. 12
-        new_labels = torch.where(migrate, best, labels)
-        mig_deg = torch.where(migrate, deg_w, 0.0)
-        delta = torch.zeros(k, dtype=torch.float32, device=loads.device)
-        delta.index_add_(0, best.long(), mig_deg)
-        delta.index_add_(0, labels.long(), -mig_deg)
-        # ---- halting aggregate: score(G) at the new assignment (Eq. 9) --
-        sel = torch.where(valid, torch.where(migrate, tot_best, tot_cur),
-                          0.0)
-        delta, score_g, n_mig, mig_mass = red(                    # aggregators
-            [delta, sel.sum(), migrate.sum().to(torch.int32), mig_deg.sum()])
-        new_loads = loads + delta
+        dev = loads.device
+        with trace.span("runner.epilogue", device=dev):
+            want = (best != labels) & valid
+            # ---- ComputeMigrations (Eq. 11-12) -------------------------
+            M, = red([m_partial])                                 # aggregator
+            R = torch.clamp(C - loads, min=0.0)                   # Eq. 11
+            p = torch.clamp(R / torch.clamp(M, min=1e-9), 0.0, 1.0)
+            migrate = want & (u < p[best.long()])                 # Eq. 12
+            new_labels = torch.where(migrate, best, labels)
+            mig_deg = torch.where(migrate, deg_w, 0.0)
+            delta = torch.zeros(k, dtype=torch.float32, device=dev)
+            delta.index_add_(0, best.long(), mig_deg)
+            delta.index_add_(0, labels.long(), -mig_deg)
+            # ---- halting aggregate: score(G) at the new assignment (Eq. 9)
+            sel = torch.where(valid, torch.where(migrate, tot_best, tot_cur),
+                              0.0)
+            delta, score_g, n_mig, mig_mass = red(                # aggregators
+                [delta, sel.sum(), migrate.sum().to(torch.int32),
+                 mig_deg.sum()])
+            new_loads = loads + delta
         return new_labels, new_loads, score_g, n_mig, mig_mass
 
     return propose, finish
@@ -459,8 +463,9 @@ def make_iterate(cfg, opts: EngineOptions) -> Callable:
     def iterate(labels, loads, key, bind: GraphBind):
         v_pad, dev = labels.shape[0], labels.device
         k_noise, k_mig = rng.split(key)
-        noise = rng.uniform(k_noise, (v_pad, k), 0.0, tie, device=dev)
-        u = rng.uniform(k_mig, (v_pad,), device=dev)
+        with trace.span("draws", device=dev):
+            noise = rng.uniform(k_noise, (v_pad, k), 0.0, tie, device=dev)
+            u = rng.uniform(k_mig, (v_pad,), device=dev)
         if fused is not None:
             return fused(labels, loads, noise, u, bind)
         scores = scores_fn(labels, *bind.score)
@@ -735,8 +740,9 @@ def make_frontier_step(cfg, opts: EngineOptions) -> Callable:
         key, k_it = rng.split(state.key)
         v_pad, dev = state.labels.shape[0], state.labels.device
         k_noise, k_mig = rng.split(k_it)
-        noise = rng.uniform(k_noise, (v_pad, k), 0.0, tie, device=dev)
-        u = rng.uniform(k_mig, (v_pad,), device=dev)
+        with trace.span("draws", device=dev):
+            noise = rng.uniform(k_noise, (v_pad, k), 0.0, tie, device=dev)
+            u = rng.uniform(k_mig, (v_pad,), device=dev)
         fbind = bind._replace(valid=bind.valid & active)
         valid = fbind.valid
         if fused is not None:

@@ -79,6 +79,7 @@ import numpy as np
 import torch
 
 from .. import rng
+from ..runtime import trace
 from . import delta as _delta
 from . import engine as _engine
 from . import metrics
@@ -242,7 +243,8 @@ class PartitionSession:
                   ) -> PartitionResult:
         """Run to a stable state from ``init`` (or a fresh random start)."""
         self._check_open()
-        return self._run(init, record_history, callback)
+        with trace.span("session.partition"):
+            return self._run(init, record_history, callback)
 
     def adapt(self, new_graph: Optional[Graph] = None,
               prev: Optional[np.ndarray] = None, *,
@@ -269,46 +271,47 @@ class PartitionSession:
         counts.
         """
         self._check_open()
-        if new_graph is not None and edge_updates is not None:
-            raise ValueError("pass at most one of new_graph/edge_updates")
-        batch = None
-        if edge_updates is not None:
-            e_src, e_dst = edge_updates
-            e_src, e_dst = _delta.check_edge_updates(
-                e_src, e_dst, self._graph.num_vertices, num_vertices)
-            self._delta_seq += 1
-            grows = (num_vertices is not None
-                     and num_vertices > self._graph.num_vertices)
-            if not grows:
-                prev_arr = self._require_prev(prev)
-                res = self._try_fast_adapt(e_src, e_dst, prev_arr,
-                                           frontier, record_history,
-                                           callback)
-                if res is not None:
-                    self._staged = None
-                    return res
-                self._fallback_adapts += 1
-            # fallback: the classic host rebuild (bit-identical oracle)
-            new_graph = add_edges(self.graph, e_src, e_dst,
-                                  num_vertices=num_vertices)
-            self._host_rebuilds += 1
-            batch = (e_src, e_dst)
-        prev = self._require_prev(prev)
-        if new_graph is None and self._staged is not None:
-            new_graph = self._staged
-        dirty, old_v = self._dirty, self._graph.num_vertices
-        if new_graph is not None:
-            # any rebinding -- staged or explicit -- supersedes a pending
-            # staged snapshot, built against the graph this call replaces
-            self._staged = None
-            self.graph = new_graph
-        init = extend_labels(prev, self.graph.num_vertices)
-        if frontier:
-            active = self._frontier_active(dirty, old_v, batch,
-                                           full=batch is None)
-            return self._run_frontier(init, active, record_history,
-                                      callback)
-        return self._run(init, record_history, callback)
+        with trace.span("session.adapt"):
+            if new_graph is not None and edge_updates is not None:
+                raise ValueError("pass at most one of new_graph/edge_updates")
+            batch = None
+            if edge_updates is not None:
+                e_src, e_dst = edge_updates
+                e_src, e_dst = _delta.check_edge_updates(
+                    e_src, e_dst, self._graph.num_vertices, num_vertices)
+                self._delta_seq += 1
+                grows = (num_vertices is not None
+                         and num_vertices > self._graph.num_vertices)
+                if not grows:
+                    prev_arr = self._require_prev(prev)
+                    res = self._try_fast_adapt(e_src, e_dst, prev_arr,
+                                               frontier, record_history,
+                                               callback)
+                    if res is not None:
+                        self._staged = None
+                        return res
+                    self._fallback_adapts += 1
+                # fallback: the classic host rebuild (bit-identical oracle)
+                new_graph = add_edges(self.graph, e_src, e_dst,
+                                      num_vertices=num_vertices)
+                self._host_rebuilds += 1
+                batch = (e_src, e_dst)
+            prev = self._require_prev(prev)
+            if new_graph is None and self._staged is not None:
+                new_graph = self._staged
+            dirty, old_v = self._dirty, self._graph.num_vertices
+            if new_graph is not None:
+                # any rebinding -- staged or explicit -- supersedes a pending
+                # staged snapshot, built against the graph this call replaces
+                self._staged = None
+                self.graph = new_graph
+            init = extend_labels(prev, self.graph.num_vertices)
+            if frontier:
+                active = self._frontier_active(dirty, old_v, batch,
+                                               full=batch is None)
+                return self._run_frontier(init, active, record_history,
+                                          callback)
+            return self._run(init, record_history, callback)
 
     def _frontier_active(self, dirty, old_v: int, batch,
                          full: bool) -> np.ndarray:
@@ -523,21 +526,24 @@ class PartitionSession:
         self._delta_bytes_total += nbytes
         self._fast_adapts += 1
 
-        key, _ = rng.split(rng.PRNGKey(self.cfg.seed))
-        labels_p = _engine.pad_labels(
-            torch.from_numpy(np.ascontiguousarray(prev)).to(self._device),
-            fs.v_pad)
-        if self._mesh is None:
-            loads = _engine.device_loads(labels_p, fs.dd.deg_w, self.cfg.k)
-        else:
-            from .comm import mesh_comm
-            # each rank's rows, summed over the ranks (integer sums: exact)
-            lo, vl = fs.dd.rank * fs.dd.v_per_dev, fs.dd.v_per_dev
-            loads, = _engine.make_rank_sum(
-                mesh_comm(self._mesh, self.options.axis))([
-                    _engine.device_loads(labels_p[lo:lo + vl], fs.dd.deg_w,
-                                         self.cfg.k)])
-        return fs, _engine.init_state(labels_p, loads, key)
+        with trace.span("session.restart"):
+            key, _ = rng.split(rng.PRNGKey(self.cfg.seed))
+            labels_p = _engine.pad_labels(
+                torch.from_numpy(np.ascontiguousarray(prev)).to(self._device),
+                fs.v_pad)
+            if self._mesh is None:
+                loads = _engine.device_loads(labels_p, fs.dd.deg_w,
+                                             self.cfg.k)
+            else:
+                from .comm import mesh_comm
+                # each rank's rows, summed over the ranks (integer sums:
+                # exact)
+                lo, vl = fs.dd.rank * fs.dd.v_per_dev, fs.dd.v_per_dev
+                loads, = _engine.make_rank_sum(
+                    mesh_comm(self._mesh, self.options.axis))([
+                        _engine.device_loads(labels_p[lo:lo + vl],
+                                             fs.dd.deg_w, self.cfg.k)])
+            return fs, _engine.init_state(labels_p, loads, key)
 
     def _fast_bind(self, fs: _DeltaFast,
                    frontier: bool) -> _engine.GraphBind:
@@ -547,24 +553,25 @@ class PartitionSession:
         in float64 from the tracked total weight, then made a float32
         device scalar."""
         cfg, dd, opts = self.cfg, fs.dd, fs.opts
-        backend = opts.backend()
-        args_of = (backend.fused_graph_args
-                   if opts.resolved_fused_update() == "on"
-                   else backend.graph_args)
-        score = tuple(args_of(dd.csr))
-        if dd.num_entries:
-            score += tuple(backend.delta_args(dd))
-        num_real = self._graph.num_vertices
-        capacity = cfg.c * fs.tracker.total_weight / cfg.k
-        return _engine.GraphBind(
-            deg_w=dd.deg_w,
-            capacity=torch.tensor(capacity, dtype=torch.float32,
-                                  device=self._device),
-            num_real=num_real,
-            valid=torch.arange(fs.v_pad, device=self._device) < num_real,
-            score=score,
-            frontier=(((dd.csr.src, dd.csr.dst), (dd.src, dd.dst))
-                      if frontier else ()))
+        with trace.span("session.restart"):
+            backend = opts.backend()
+            args_of = (backend.fused_graph_args
+                       if opts.resolved_fused_update() == "on"
+                       else backend.graph_args)
+            score = tuple(args_of(dd.csr))
+            if dd.num_entries:
+                score += tuple(backend.delta_args(dd))
+            num_real = self._graph.num_vertices
+            capacity = cfg.c * fs.tracker.total_weight / cfg.k
+            return _engine.GraphBind(
+                deg_w=dd.deg_w,
+                capacity=torch.tensor(capacity, dtype=torch.float32,
+                                      device=self._device),
+                num_real=num_real,
+                valid=torch.arange(fs.v_pad, device=self._device) < num_real,
+                score=score,
+                frontier=(((dd.csr.src, dd.csr.dst), (dd.src, dd.dst))
+                          if frontier else ()))
 
     def _try_fast_adapt(self, e_src, e_dst, prev, frontier,
                         record_history, callback
@@ -721,13 +728,14 @@ class PartitionSession:
             scored = float(sum(per_iter))
         else:
             per_iter, scored = (), -1.0
-        res = PartitionResult(
-            labels=state.labels[:num_real].cpu().numpy(),
-            loads=state.loads.cpu().numpy(), iterations=iters,
-            halted=bool(state.halted), history=[],
-            total_messages=float(state.total_messages), engine=eng,
-            exchanged_bytes=float(state.exchanged_bytes),
-            scored_vertices=scored, scored_per_iter=per_iter)
+        with trace.span("runner.readback"):
+            res = PartitionResult(
+                labels=state.labels[:num_real].cpu().numpy(),
+                loads=state.loads.cpu().numpy(), iterations=iters,
+                halted=bool(state.halted), history=[],
+                total_messages=float(state.total_messages), engine=eng,
+                exchanged_bytes=float(state.exchanged_bytes),
+                scored_vertices=scored, scored_per_iter=per_iter)
         self._last = res
         self._prev = res.labels
         self._runs += 1
@@ -995,13 +1003,14 @@ class PartitionSession:
                 if not record:
                     history = []     # a callback forces recording
             # sharded labels come back padded to the sharded layout
-            res = PartitionResult(
-                labels=state.labels[:graph.num_vertices].cpu().numpy(),
-                loads=state.loads.cpu().numpy(),
-                iterations=int(state.iteration),
-                halted=bool(state.halted), history=history,
-                total_messages=float(state.total_messages), engine=eng,
-                exchanged_bytes=float(state.exchanged_bytes))
+            with trace.span("runner.readback"):
+                res = PartitionResult(
+                    labels=state.labels[:graph.num_vertices].cpu().numpy(),
+                    loads=state.loads.cpu().numpy(),
+                    iterations=int(state.iteration),
+                    halted=bool(state.halted), history=history,
+                    total_messages=float(state.total_messages), engine=eng,
+                    exchanged_bytes=float(state.exchanged_bytes))
         self._last = res
         self._prev = res.labels
         self._runs += 1

@@ -49,6 +49,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional, Union
 
+from ..runtime import trace
 from . import ref
 from .spinner_scores import (clip_tile, fused_update, fused_update_frontier,
                              fused_update_seeded, spinner_scores)
@@ -209,14 +210,15 @@ class CudaCsrBackend:
         def fused(labels, loads, noise, u, bind):
             pen = loads / bind.capacity
             base, delta = bind.score[:3], bind.score[3:]
-            if frontier:
-                parts = fused_update_frontier(
-                    labels, *base, bind.deg_w, pen, noise, bind.valid, k,
-                    current_bonus, degree_weighted, delta, tile=tile)
-            else:
-                parts = fused_update(labels, *base, bind.deg_w, pen, noise,
-                                     bind.num_real, k, current_bonus,
-                                     degree_weighted, delta, tile=tile)
+            with trace.span("kernels.k1", device=labels.device):
+                if frontier:
+                    parts = fused_update_frontier(
+                        labels, *base, bind.deg_w, pen, noise, bind.valid, k,
+                        current_bonus, degree_weighted, delta, tile=tile)
+                else:
+                    parts = fused_update(
+                        labels, *base, bind.deg_w, pen, noise, bind.num_real,
+                        k, current_bonus, degree_weighted, delta, tile=tile)
             out = finish(*parts, labels, bind.deg_w, loads, u, bind.valid,
                          bind.capacity)
             if frontier:
