@@ -410,6 +410,7 @@ def phase_kernels(graph, padded, dev, report: dict) -> None:
     print(f"(b) shapes: V_pad={v} E_pad={e} k={K}; torch.sparse.mm "
           f"bitwise equal to the scatter-add: "
           f"{res['spinner_scores_csr']['library_bitwise_equal']}", flush=True)
+    draws_kernel(v, dev, report)
 
 
 def phase_main_path(graph, padded, dev, report: dict) -> np.ndarray:
@@ -419,10 +420,12 @@ def phase_main_path(graph, padded, dev, report: dict) -> np.ndarray:
     from repro_torch.core import EngineOptions, SpinnerConfig, metrics
     from repro_torch.core import engine, partition
     from repro_torch.kernels.spinner_scores import fused_update, spinner_scores
+    from repro_torch.kernels.threefry import uniform_threefry
 
     cfg = SpinnerConfig(k=K)
     opts = EngineOptions(device=dev)
     fused_update.launches = spinner_scores.launches = 0
+    uniform_threefry.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = partition(graph, cfg, engine="fused", options=opts)
@@ -435,6 +438,10 @@ def phase_main_path(graph, padded, dev, report: dict) -> np.ndarray:
           f"{res.iterations} iterations")
     check(k2_launches == 0, "split score kernel ran on the fused path")
     report["fused_update_csr"]["launches"] = k1_launches
+    draws = report["threefry_uniform"]["launches"] = uniform_threefry.launches
+    check(draws == 2 * res.iterations,
+          f"threefry_uniform launched {draws} times in {res.iterations} "
+          f"iterations (two draws an iteration)")
 
     check(res.labels.shape == (graph.num_vertices,), "label shape")
     check(int(res.labels.min()) >= 0 and int(res.labels.max()) < K,
@@ -451,7 +458,8 @@ def phase_main_path(graph, padded, dev, report: dict) -> np.ndarray:
           f"{res.iterations} halted={res.halted} phi={phi:.6f} "
           f"rho={rho:.6f} wall={wall:.3f}s "
           f"ms/iteration={wall / res.iterations * 1e3:.3f} "
-          f"fused_update_csr launches={k1_launches}", flush=True)
+          f"fused_update_csr launches={k1_launches} threefry_uniform "
+          f"launches={draws}", flush=True)
     report["main_result"] = dict(labels=res.labels, loads=res.loads,
                                  iterations=res.iterations,
                                  halted=res.halted)
@@ -483,10 +491,13 @@ def phase_main_path(graph, padded, dev, report: dict) -> np.ndarray:
                                          current_bonus=cfg.current_bonus)
     parts = fused_update(labels, *bind.score, bind.deg_w, pen, noise,
                          bind.num_real, K, cfg.current_bonus, True)
+    # the draws on these keys, held to the plain path and timed (the times
+    # the kernels line reports)
+    drawn = draws_against_plain(k_noise, k_mig, v_pad, cfg.tie_noise, dev)
+    print_draws("c, the main path's keys", drawn)
+    report["threefry_uniform"].update(drawn)
     split = {
-        "rng_ms": time_ms(lambda: (
-            rng.uniform(k_noise, (v_pad, K), 0.0, cfg.tie_noise, device=dev),
-            rng.uniform(k_mig, (v_pad,), device=dev)), reps=5),
+        "rng_ms": drawn["ms"],
         "kernel_ms": converged["fused_update_csr"]["ms"],
         "epilogue_ms": time_ms(lambda: finish(
             *parts, labels, bind.deg_w, loads, u, bind.valid, bind.capacity),
@@ -644,6 +655,104 @@ def pregel_bound(rp, dst, combine: str, seeded: bool, update: bool,
                 bytes=nbytes, ops=ops,
                 bound_ms_with_gather=(fixed + edges * 4) / HBM_BYTES_PER_S
                 * 1e3)
+
+
+# The threefry kernel's bound: threefry2x32 needs 20 rotates and 20 xors
+# an output on the integer ALU pipe, 64 lanes an SM; its adds can all
+# issue as IMAD on the FMA pipe.  The bound is the function's, not this
+# build's: nvcc's loop issues 55.5 ALU-pipe instructions an output (80 in
+# all, by cuobjdump -sass), adds left on IADD3 and address arithmetic.
+THREEFRY_SOURCE = "src/repro_torch/kernels/csrc/threefry.cu"
+THREEFRY_ALU_PER_OUTPUT = 40
+ALU_LANES_PER_SM = 64
+
+
+def draws_against_plain(k_noise, k_mig, v: int, tie: float, dev) -> dict:
+    """One iteration's draws, the ``(v, K)`` tie noise in [0, tie) and the
+    ``(v,)`` migration draws, through ``rng.uniform`` (the threefry kernel,
+    a launch each) against ``rng._uniform_plain`` on the same keys --
+    bitwise equal -- with CUDA-event median times of both."""
+    from repro_torch import rng
+    from repro_torch.kernels.threefry import uniform_threefry
+
+    def noise(draw=rng.uniform):
+        return draw(k_noise, (v, K), 0.0, tie, device=dev)
+
+    def u(draw=rng.uniform):
+        return draw(k_mig, (v,), device=dev)
+
+    n0 = uniform_threefry.launches
+    got = (noise(), u())
+    check(uniform_threefry.launches == n0 + 2,
+          "an iteration's draws are not two threefry launches")
+    want = (noise(rng._uniform_plain), u(rng._uniform_plain))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("noise", "u"), got, want):
+        check(bits_equal(a, b), f"threefry_uniform {name} != "
+              f"rng._uniform_plain")
+    err = max_abs_err(zip(got, want))
+    del got, want
+    return dict(
+        max_abs_err=err, ms=time_ms(lambda: (noise(), u()), reps=20),
+        noise_ms=time_ms(noise, reps=20), u_ms=time_ms(u, reps=20),
+        plain_ms=time_ms(lambda: (noise(rng._uniform_plain),
+                                  u(rng._uniform_plain)), reps=5))
+
+
+def print_draws(tag: str, r: dict) -> None:
+    print(f"({tag}) threefry_uniform: bitwise equal (max_abs_err "
+          f"{r['max_abs_err']}), {r['ms']:.4f} ms for an iteration's two "
+          f"draws (noise {r['noise_ms']:.4f}, u {r['u_ms']:.4f}; plain "
+          f"{r['plain_ms']:.3f} ms)", flush=True)
+
+
+def draws_kernel(v: int, dev, report: dict) -> None:
+    """(b) The threefry kernel at the main path's shapes: an iteration's
+    draws on fresh keys and ``engine.batched_draws`` of two elements
+    (``uniform_many`` over the strided ``keys[:, 0]`` and ``keys[:, 1]``
+    views) against the plain path; its bounds by ALU instructions and by
+    bytes."""
+    from repro_torch import rng
+    from repro_torch.core import SpinnerConfig, engine
+    from repro_torch.kernels.threefry import uniform_threefry
+
+    cfg = SpinnerConfig(k=K)
+    drawn = draws_against_plain(*rng.split(rng.PRNGKey(13)), v,
+                                cfg.tie_noise, dev)
+    print_draws("b", drawn)
+    keys = [rng.split(rng.PRNGKey(14 + b)) for b in range(2)]
+    n0 = uniform_threefry.launches
+    noise, u = engine.batched_draws(
+        cfg, torch.tensor(keys, dtype=torch.int64, device=dev), v)
+    check(uniform_threefry.launches == n0 + 2,
+          "batched draws are not two threefry launches")
+    for b, (k_noise, k_mig) in enumerate(keys):
+        check(bits_equal(noise[b], rng._uniform_plain(
+            k_noise, (v, K), 0.0, cfg.tie_noise, device=dev))
+            and bits_equal(u[b], rng._uniform_plain(k_mig, (v,),
+                                                    device=dev)),
+            f"batched draws of element {b} != rng._uniform_plain")
+    del noise, u
+
+    outputs = v * (K + 1)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    alu = outputs * THREEFRY_ALU_PER_OUTPUT
+    report["threefry_uniform"] = dict(
+        random_keys=drawn, outputs=outputs, alu_instructions=alu, sms=sms,
+        clock_max_mhz=mhz,
+        bound_ms=alu / (sms * ALU_LANES_PER_SM * mhz * 1e6) * 1e3,
+        bytes=4 * outputs, bound_bytes_ms=4 * outputs / HBM_BYTES_PER_S * 1e3)
+    r = report["threefry_uniform"]
+    print(f"(b) threefry_uniform: batched draws of 2 keys (strided views) "
+          f"bitwise equal; bound {r['bound_ms']:.4f} ms by ALU "
+          f"instructions ({outputs} outputs x {THREEFRY_ALU_PER_OUTPUT} at "
+          f"{sms} SMs x {ALU_LANES_PER_SM} lanes x {mhz:.0f} MHz), "
+          f"{r['bound_bytes_ms']:.4f} ms by bytes ({r['bytes']} B); "
+          f"{r['bound_ms'] / drawn['ms']:.3f} of the ALU bound", flush=True)
 
 
 def pregel_kernels_against_plain(lay, dev, report: dict) -> None:
@@ -3997,11 +4106,11 @@ def print_rates(kernels: list) -> None:
             ms, nbytes = r["ms" + sfx], r["bytes" + sfx]
             rate = nbytes / (ms * 1e-3)
             r["achieved_bytes_per_s" + sfx] = rate
+            bound = r.get("bound_bytes_ms" + sfx, r["bound_ms" + sfx])
             print(f"(e) {r['name']}{sfx}: {ms:.3f} ms for {nbytes} B = "
                   f"{rate / 1e12:.3f} TB/s achieved, bound "
-                  f"{r['bound_ms' + sfx]:.3f} ms at "
-                  f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s "
-                  f"({r['bound_ms' + sfx] / ms:.3f} of it)", flush=True)
+                  f"{bound:.3f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s "
+                  f"({bound / ms:.3f} of it)", flush=True)
 
 
 def main() -> int:
@@ -4165,6 +4274,24 @@ def main() -> int:
         "bound_ms_4_shards": [r["seeded_bound_ms"] for r in shards],
         "frontier_edges_4_shards": [r["frontier_edges"] for r in shards],
         "base_ms_4_shards": [r["base_ms"] for r in shards]})
+    draws = report["threefry_uniform"]
+    kernels.append({
+        "name": "threefry_uniform", "route": "cuda",
+        "source": THREEFRY_SOURCE,
+        "replaces": "none (jax.random.uniform in XLA, "
+                    "src/repro/core/engine.py:593-595)",
+        "launches": draws["launches"],
+        "max_abs_err": max(draws["max_abs_err"],
+                           draws["random_keys"]["max_abs_err"]),
+        "ms": draws["ms"], "plain_ms": draws["plain_ms"],
+        "bound_ms": draws["bound_ms"], "bound_by": "instructions",
+        "bound_bytes_ms": draws["bound_bytes_ms"], "bytes": draws["bytes"],
+        "library_ms": None, "noise_ms": draws["noise_ms"],
+        "u_ms": draws["u_ms"], "outputs": draws["outputs"],
+        "alu_instructions": draws["alu_instructions"], "sms": draws["sms"],
+        "clock_max_mhz": draws["clock_max_mhz"],
+        "ms_random_keys": draws["random_keys"]["ms"],
+        "plain_ms_random_keys": draws["random_keys"]["plain_ms"]})
     for r in kernels:
         if r["name"] in ("spinner_scores_csr", "fused_update_csr"):
             r["bytes"] = report[r["name"]]["bytes"]

@@ -5,8 +5,11 @@
 ``pregel_combine`` the Pregel combine kernels'
 (``pregel_reduce`` and ``pregel_combine``), ``ref`` their plain versions,
 ``ops`` the score-backend registry the engine uses, ``autotune`` the
-score kernels' tile autotuner.
+score kernels' tile autotuner, ``threefry`` the threefry uniform kernel's
+(``uniform_threefry``, ``rng.uniform``'s card half; its plain version is
+``rng._uniform_plain``).
 """
-from . import autotune, ops, pregel_combine, ref, spinner_scores
+from . import autotune, ops, pregel_combine, ref, spinner_scores, threefry
 
-__all__ = ["autotune", "ops", "pregel_combine", "ref", "spinner_scores"]
+__all__ = ["autotune", "ops", "pregel_combine", "ref", "spinner_scores",
+           "threefry"]

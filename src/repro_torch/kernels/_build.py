@@ -4,8 +4,13 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 into ``build/kernels/lib<name>-<hash>.so`` at the repository root (listed
 in ``.gitignore``).  The hash covers the source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source rebuilds and an
-unchanged one is loaded as it is.  The build runs at first use; ``build``
-starts one nvcc per source, all together.
+unchanged one is loaded as it is.  The build runs at first use: the first
+``load`` of a library not built yet builds every source of ``SOURCES`` not
+built yet, one nvcc each, all started together, so a fresh checkout waits
+for the slowest source and not for their sum.  Each source that compiles
+is installed; ``load`` raises only if its own library failed, so a fault
+in one source blocks no other library (its own ``load`` raises with its
+compiler output).
 
 The flags keep float arithmetic IEEE: ``-fmad=false`` and never
 ``--use_fast_math``, because the fused kernel's division and argmax are
@@ -37,7 +42,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("spinner_scores", "pregel_combine")
+SOURCES = ("spinner_scores", "pregel_combine", "threefry")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -60,23 +65,24 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build(names=SOURCES) -> dict:
+def build(names=SOURCES, need=None) -> dict:
     """Compile every named source not built yet, one nvcc each, started
-    together.
+    together, and install each that compiled.
 
     Returns ``{name: (seconds, compiler log)}`` for the sources compiled
     by this call (the log carries ``-Xptxas -v``'s registers and spills);
     the seconds run from the common start to that source's end.  Raises
-    with the compiler's output if a build fails, after every nvcc it
-    started has ended.
+    with the compiler's output, after every nvcc it started has ended, if
+    a build fails -- with ``need`` given, only if that source's build
+    fails.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(BUILD_DIR / ".lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)      # released when lock closes
-        return _build_locked(names)
+        return _build_locked(names, need)
 
 
-def _build_locked(names) -> dict:
+def _build_locked(names, need) -> dict:
     t0 = time.perf_counter()
     running = {}
     for name in names:
@@ -89,25 +95,30 @@ def _build_locked(names) -> dict:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs = {name: (proc.communicate()[0], time.perf_counter() - t0)
             for name, (_, _, proc) in running.items()}
-    failed = [n for n, (_, _, proc) in running.items() if proc.returncode]
-    if failed:
-        raise RuntimeError("nvcc failed for " + ", ".join(
-            f"{n}.cu:\n{logs[n][0]}" for n in failed))
-    built = {}
-    for name, (out, tmp, _) in running.items():
+    built, failed = {}, []
+    for name, (out, tmp, proc) in running.items():
+        if proc.returncode:
+            failed.append(name)
+            continue
         os.replace(tmp, out)          # atomic: a loader sees all or none
         log, seconds = logs[name]
         built[name] = (seconds, log)
+    if need is not None:
+        failed = [n for n in failed if n == need]
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(
+            f"{n}.cu:\n{logs[n][0]}" for n in failed))
     return built
 
 
 def load(name: str, signatures: dict) -> ctypes.CDLL:
-    """The built library ``name`` (building it first if needed), with
-    ``argtypes``/``restype`` declared from ``{function: (restype,
-    argtypes)}``."""
+    """The built library ``name`` (building it first if needed, together
+    with every other source of ``SOURCES`` not built yet; only its own
+    failure raises), with ``argtypes``/``restype`` declared from
+    ``{function: (restype, argtypes)}``."""
     lib = _LIBS.get(name)
     if lib is None:
-        build([name])
+        build(SOURCES, need=name)
         lib = ctypes.CDLL(str(library_path(name)))
         for fn, (restype, argtypes) in signatures.items():
             getattr(lib, fn).restype = restype

@@ -23,6 +23,14 @@ draw) is drawn from its own counters alone.
 batched runner's per-tenant draws): the key words broadcast as ``(nb,
 1)`` columns against the ``(1, n)`` counters, so row ``b`` is bit for bit
 ``uniform(keys[b], ...)``.
+
+On a CUDA device ``uniform`` and ``uniform_many`` are one launch each of
+the threefry kernel (``kernels/threefry.py``), which computes the same
+bits in registers and writes only the float32 output; there is no
+fallback.  Their int64 versions (``_uniform_plain``,
+``_uniform_many_plain``) serve CPU tensors, and the card's tests hold the
+kernel to them.  ``random_bits`` and ``randint`` (initial labels, once a
+call) stay on the int64 ops on every device.
 """
 from __future__ import annotations
 
@@ -31,6 +39,8 @@ from typing import Tuple, Union
 
 import numpy as np
 import torch
+
+from .kernels.threefry import uniform_threefry
 
 Key = Tuple[int, int]
 
@@ -98,13 +108,25 @@ def _bit_blocks(key: Key, n: int, device, offset: int = 0):
         yield start, stop, b0 ^ b1
 
 
-def _key_words(keys, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The ``(nb, 1)`` int64 columns of a list of keys' words, or of an
-    ``(nb, 2)`` int64 tensor of them (used as it is: no host copy)."""
-    if not isinstance(keys, torch.Tensor):
-        keys = torch.tensor([[int(a), int(b)] for a, b in keys],
-                            dtype=torch.int64, device=device)
-    return keys[:, :1], keys[:, 1:]
+def _key_tensor(keys, device) -> torch.Tensor:
+    """The ``(nb, 2)`` int64 words of a list of keys, or such a tensor
+    itself (used as it is: no host copy)."""
+    if isinstance(keys, torch.Tensor):
+        return keys
+    return torch.tensor([[int(a), int(b)] for a, b in keys],
+                        dtype=torch.int64, device=device)
+
+
+def _bounds(minval: float, maxval: float) -> Tuple[float, float]:
+    """``(lo, span)``: the float32 bounds as host scalars.  PyTorch
+    multiplies and adds a host scalar in the tensor's float32, and device
+    scalars would cost a host-device copy (and a stream sync) per draw."""
+    return (float(np.float32(minval)),
+            float(np.float32(maxval) - np.float32(minval)))
+
+
+def _on_card(device) -> bool:
+    return torch.device(device).type == "cuda"
 
 
 def uniform_many(keys, shape, minval: float = 0.0, maxval: float = 1.0, *,
@@ -114,14 +136,29 @@ def uniform_many(keys, shape, minval: float = 0.0, maxval: float = 1.0, *,
     ``uniform(keys[b], shape, minval, maxval)``.
 
     ``keys`` is a list of keys or an ``(nb, 2)`` int64 tensor of their
-    uint32 words on ``device``.  Blocks of the flat counters bound the
-    int64 temporaries to ``_BLOCK`` elements across the batch.
+    uint32 words on ``device`` (any strides).  On a CUDA device, one
+    launch of the threefry kernel; elsewhere ``_uniform_many_plain``.
     """
     shape = tuple(int(s) for s in shape)
-    k0, k1 = _key_words(keys, device)
+    if not _on_card(device):
+        return _uniform_many_plain(keys, shape, minval, maxval,
+                                   device=device)
+    words = _key_tensor(keys, device)
+    out = uniform_threefry(words, math.prod(shape), *_bounds(minval, maxval),
+                           device=device)
+    return out.reshape((words.shape[0],) + shape)
+
+
+def _uniform_many_plain(keys, shape, minval: float = 0.0,
+                        maxval: float = 1.0, *, device) -> torch.Tensor:
+    """``uniform_many`` from int64 torch ops on any device.  Blocks of the
+    flat counters bound the int64 temporaries to ``_BLOCK`` elements
+    across the batch."""
+    shape = tuple(int(s) for s in shape)
+    words = _key_tensor(keys, device)
+    k0, k1 = words[:, :1], words[:, 1:]
     nb, n = k0.shape[0], math.prod(shape)
-    lo = float(np.float32(minval))
-    span = float(np.float32(maxval) - np.float32(minval))
+    lo, span = _bounds(minval, maxval)
     out = torch.empty((nb, n), dtype=torch.float32, device=device)
     block = max(1, _BLOCK // max(nb, 1))
     for start in range(0, n, block):
@@ -161,13 +198,24 @@ def uniform(key: Key, shape, minval: float = 0.0, maxval: float = 1.0, *,
     (tie noise in [0, tie), migration draws in [0, 1)).  For other
     ``minval`` XLA may contract the scale and shift into one fused
     multiply-add, which rounds once where this rounds twice.
+
+    On a CUDA device, one launch of the threefry kernel with the key as
+    two scalars; elsewhere ``_uniform_plain``.  Both give the same bits.
     """
     shape = tuple(int(s) for s in shape)
-    # float32 bounds as host scalars: PyTorch multiplies and adds a host
-    # scalar in the tensor's float32, and creating device scalars here
-    # would cost a host-device copy (and a stream sync) per draw
-    lo = float(np.float32(minval))
-    span = float(np.float32(maxval) - np.float32(minval))
+    if not _on_card(device):
+        return _uniform_plain(key, shape, minval, maxval, device=device,
+                              offset=offset)
+    return uniform_threefry(key, math.prod(shape), *_bounds(minval, maxval),
+                            device=device, offset=offset).reshape(shape)
+
+
+def _uniform_plain(key: Key, shape, minval: float = 0.0, maxval: float = 1.0,
+                   *, device, offset: int = 0) -> torch.Tensor:
+    """``uniform`` from int64 torch ops in ``_BLOCK``-element blocks, on
+    any device."""
+    shape = tuple(int(s) for s in shape)
+    lo, span = _bounds(minval, maxval)
     out = torch.empty(math.prod(shape), dtype=torch.float32, device=device)
     for start, stop, bits in _bit_blocks(key, out.numel(), device, offset):
         out[start:stop] = torch.clamp(_bits_to_unit(bits) * span + lo,

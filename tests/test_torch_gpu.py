@@ -22,7 +22,7 @@ from repro_torch.core import (EngineOptions, SpinnerConfig, delta,
                               distributed, engine, generators, open_session,
                               partition, prepare_init)
 from repro_torch.core.graph import _finish
-from repro_torch.kernels import autotune, ref
+from repro_torch.kernels import autotune, ref, threefry
 from repro_torch.kernels.ops import CudaCsrBackend
 from repro_torch.kernels.pregel_combine import pregel_combine, pregel_reduce
 from repro_torch.kernels.spinner_scores import (clip_tile, fused_update,
@@ -1098,6 +1098,93 @@ def test_uniform_many_on_card(cuda):
     for b, key in enumerate(keys):
         assert _bits_equal(many[b], rng.uniform(key, (1000, 32), 0.0, 1e-6,
                                                 device=cuda))
+
+
+# The threefry kernel (``kernels/threefry.py``) against rng's plain int64
+# path on the card, bit for bit: the float32 values and their int32 view.
+# Counter offsets: none, a row start of a (4 M, 32) draw, and a range
+# that crosses 2**32.
+THREEFRY_OFFSETS = [0, 3_000_001 * 32, 2**32 - 17]
+THREEFRY_BOUNDS = [(0.0, 1.0), (0.0, 1e-7), (-2.0, 3.0)]
+
+
+def _same_bits(a, b):
+    return torch.equal(a, b) and torch.equal(a.view(torch.int32),
+                                             b.view(torch.int32))
+
+
+def test_threefry_full_size_draws(cuda):
+    """One iteration's draws at the benchmark's size: the (4,194,304, 32)
+    tie noise and the (4,194,304,) migration draws, a launch each."""
+    k_noise, k_mig = rng.split(rng.split(rng.PRNGKey(2**31 + 3))[1])
+    v = 4_194_304
+    n0 = threefry.uniform_threefry.launches
+    noise = rng.uniform(k_noise, (v, 32), 0.0, 1e-7, device=cuda)
+    u = rng.uniform(k_mig, (v,), device=cuda)
+    assert threefry.uniform_threefry.launches == n0 + 2
+    assert _same_bits(noise, rng._uniform_plain(k_noise, (v, 32), 0.0, 1e-7,
+                                                device=cuda))
+    assert _same_bits(u, rng._uniform_plain(k_mig, (v,), device=cuda))
+
+
+@pytest.mark.parametrize("bounds", THREEFRY_BOUNDS)
+@pytest.mark.parametrize("offset", THREEFRY_OFFSETS)
+@pytest.mark.parametrize("n", [1, 31, 2**24 + 3])
+def test_threefry_uniform_matches_plain(cuda, n, offset, bounds):
+    key = rng.split(rng.PRNGKey(n + offset))[0]
+    n0 = threefry.uniform_threefry.launches
+    got = rng.uniform(key, (n,), *bounds, device=cuda, offset=offset)
+    assert threefry.uniform_threefry.launches == n0 + 1
+    want = rng._uniform_plain(key, (n,), *bounds, device=cuda, offset=offset)
+    assert _same_bits(got, want)
+    if n < 100:
+        assert _same_bits(got.cpu(), rng.uniform(key, (n,), *bounds,
+                                                 device="cpu", offset=offset))
+
+
+@pytest.mark.parametrize("bounds", THREEFRY_BOUNDS)
+@pytest.mark.parametrize("nb", [1, 3, 16])
+def test_threefry_uniform_many_matches_plain(cuda, nb, bounds):
+    """Keys as a list and as the strided ``keys[:, 0]`` view that
+    ``engine.batched_draws`` passes; ragged rows (n % 4 = 3) put every row
+    but the first off the 16-byte boundary."""
+    keys = [rng.split(rng.PRNGKey(1000 + b)) for b in range(nb)]
+    words = torch.tensor(keys, dtype=torch.int64, device=cuda)   # (nb, 2, 2)
+    shape = (1001, 7)
+    want = rng._uniform_many_plain([k[0] for k in keys], shape, *bounds,
+                                   device=cuda)
+    for given in ([k[0] for k in keys], words[:, 0]):
+        n0 = threefry.uniform_threefry.launches
+        got = rng.uniform_many(given, shape, *bounds, device=cuda)
+        assert threefry.uniform_threefry.launches == n0 + 1
+        assert got.shape == (nb,) + shape and _same_bits(got, want)
+    for b in range(nb):
+        assert _same_bits(want[b], rng._uniform_plain(keys[b][0], shape,
+                                                      *bounds, device=cuda))
+
+
+def test_threefry_wrapper_rejects_bad_inputs(cuda):
+    """A CPU device, keys that are not int64, keys of the wrong shape or
+    keys on another device raise and launch nothing; the output is always
+    a new tensor."""
+    n0 = threefry.uniform_threefry.launches
+    words = torch.tensor([rng.PRNGKey(3)], dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError):
+        threefry.uniform_threefry(rng.PRNGKey(3), 64, 0.0, 1.0, device="cpu")
+    bad = [(TypeError, words.to(torch.int32)),
+           (ValueError, words[:, :1]),
+           (ValueError, words[0]),
+           (ValueError, words.cpu())]
+    for error, keys in bad:
+        with pytest.raises(error):
+            threefry.uniform_threefry(keys, 64, 0.0, 1.0, device=cuda)
+    assert threefry.uniform_threefry.launches == n0
+    a = threefry.uniform_threefry(words, 64, 0.0, 1.0, device=cuda)
+    b = threefry.uniform_threefry(words, 64, 0.0, 1.0, device=cuda)
+    assert threefry.uniform_threefry.launches == n0 + 2
+    assert a.data_ptr() != b.data_ptr() and a.is_contiguous()
+    assert _same_bits(a[0], rng._uniform_plain(rng.PRNGKey(3), (64,),
+                                               device=cuda))
 
 
 def test_checkpointed_session_continues_on_card(cuda, tmp_path):
